@@ -1,0 +1,15 @@
+"""yi-9b [dense] — Yi-9B llama-arch with GQA. [arXiv:2403.04652]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="yi-9b",
+    arch_type="dense",
+    n_layers=48,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=4,
+    d_ff=11008,
+    vocab_size=64000,
+    sliding_window=8192,
+    citation="arXiv:2403.04652",
+)

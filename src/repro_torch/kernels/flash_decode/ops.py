@@ -1,0 +1,84 @@
+"""Public wrapper of the flash decode kernel (csrc/flash_decode.cu).
+
+CUDA tensors launch the kernel (or raise); CPU tensors run `decode_ref`.
+`launches` counts wrapper calls that launched the kernel (its split pass and
+its combine pass are one launch of the wrapper), and only those.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.flash_decode.ref import decode_ref
+
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                                          ctypes.c_void_p]
+HEAD_DIMS = (32, 64, 128)  # the instantiations in csrc/flash_decode.cu
+MAX_GROUP = 8              # query heads per kv head one CTA serves
+TILE = 64                  # cache slots per loop step of the split kernel
+CTAS_PER_SM = 4            # split the cache until B*K*n_split covers the SMs this often
+
+launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def n_splits(B: int, K: int, S: int, sms: int) -> int:
+    """Chunks of the cache per (b, kv head): enough CTAs to fill the card,
+    never a chunk shorter than one tile."""
+    want = -(-CTAS_PER_SM * sms // (B * K))
+    return max(1, min(want, -(-S // TILE)))
+
+
+def _check(q, k_cache, v_cache, cache_len):
+    if q.ndim != 4 or q.shape[1] != 1 or k_cache.ndim != 4 or k_cache.shape != v_cache.shape:
+        raise ValueError(f"want q (B,1,H,dh), caches (B,S,K,dh); got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    B, _, H, dh = q.shape
+    if k_cache.shape[0] != B or k_cache.shape[3] != dh or H % k_cache.shape[2]:
+        raise ValueError(f"q {tuple(q.shape)} does not fit caches {tuple(k_cache.shape)}")
+    if cache_len.shape != (B,):
+        raise ValueError(f"cache_len must be ({B},), got {tuple(cache_len.shape)}")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype):
+        raise TypeError(f"dtypes differ: {q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+
+
+def flash_decode(q, k_cache, v_cache, cache_len):
+    """q: (B,1,H,dh); caches: (B,S,K,dh); cache_len (B,) -> (B,1,H,dh) in
+    q.dtype. Slot j is valid iff j < min(cache_len[b], S). Any S."""
+    global launches
+    _check(q, k_cache, v_cache, cache_len)
+    if not kernels.use_kernel(q, k_cache, v_cache, cache_len):
+        return decode_ref(q, k_cache, v_cache, cache_len).to(q.dtype)
+    B, _, H, dh = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    if cache_len.dtype != torch.int32:
+        raise TypeError(f"cache_len must be int32, got {cache_len.dtype}")
+    if dh not in HEAD_DIMS or H // K > MAX_GROUP:
+        raise ValueError(f"flash_decode kernel takes d_head in {HEAD_DIMS} and at most "
+                         f"{MAX_GROUP} query heads per kv head; got {dh}, {H // K}")
+    if not all(t.is_contiguous() for t in (q, k_cache, v_cache, cache_len)):
+        raise ValueError("flash_decode kernel needs contiguous q, caches and cache_len")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("flash_decode kernel needs 16-byte aligned caches")
+    code = kernels.dtype_code(q.dtype)
+    ns = n_splits(B, K, S, _sm_count(q.device.index or 0))
+    part_num = torch.empty((B, H, ns, dh), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, H, ns, 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        fn = kernels.kernel_fn("flash_decode_fwd", _ARGTYPES)
+        rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
+                part_num.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+                B, S, H, K, dh, ns, 1.0 / math.sqrt(dh), code,
+                torch.cuda.current_stream().cuda_stream)
+    kernels.check_launch("flash_decode", rc)
+    launches += 1
+    return out

@@ -1,0 +1,147 @@
+"""repro_torch flash_attention / flash_decode against the JAX package's.
+
+On the CPU the port's wrappers run their plain versions; the JAX wrappers run
+the Pallas kernels in interpret mode (as tests/test_kernels.py does). Inputs
+are made with numpy from a seed and handed to both. Bars are the reference's
+own: 3e-5 in float32, 2e-2 in bfloat16. The kernels themselves are tested
+on the card by test_torch_kernels_cuda.py.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
+from repro.kernels.flash_decode.ops import flash_decode as jax_flash_decode
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.flash_decode.ref import decode_ref
+
+# The suite runs in parallel worker processes: one intra-op thread keeps these
+# small CPU tests from crowding the timing-sensitive tests running beside them.
+torch.set_num_threads(1)
+
+F32_ATOL = 3e-5
+BF16_ATOL = 2e-2
+
+
+def _inputs(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _both(arrays, dtype):
+    """The same numpy arrays as jax arrays and torch (CPU) tensors of `dtype`."""
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    return [jnp.asarray(a, jdt) for a in arrays], [torch.from_numpy(a).to(dtype) for a in arrays]
+
+
+# ------------------------------------------------------------ flash attention
+
+
+@pytest.mark.parametrize("B,S,H,K,dh", [(2, 256, 4, 2, 64), (1, 128, 8, 8, 32),
+                                        (1, 256, 4, 1, 128), (2, 512, 2, 2, 64)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 128)])
+def test_flash_attention_matches_jax(B, S, H, K, dh, causal, window):
+    (jq, jk, jv), (q, k, v) = _both(_inputs(0, (B, S, H, dh), (B, S, K, dh), (B, S, K, dh)),
+                                    torch.float32)
+    want = np.asarray(jax_flash_attention(jq, jk, jv, causal=causal, window=window))
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == (B, S, H, dh)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL, rtol=F32_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_dtypes_match_jax(dtype):
+    (jq, jk, jv), (q, k, v) = _both(_inputs(1, *[(1, 128, 2, 64)] * 3), dtype)
+    want = np.asarray(jax_flash_attention(jq, jk, jv, causal=True), np.float32)
+    got = fa_ops.flash_attention(q, k, v, causal=True)
+    assert got.dtype == dtype
+    atol = BF16_ATOL if dtype == torch.bfloat16 else F32_ATOL
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol)
+
+
+@pytest.mark.parametrize("bq,bk", [(64, 64), (128, 64), (64, 128)])
+def test_flash_attention_matches_jax_block_shapes(bq, bk):
+    """The port has one tiling; it agrees with every JAX tiling."""
+    (jq, jk, jv), (q, k, v) = _both(_inputs(2, *[(1, 256, 2, 32)] * 3), torch.float32)
+    want = np.asarray(jax_flash_attention(jq, jk, jv, causal=True, bq=bq, bk=bk))
+    got = fa_ops.flash_attention(q, k, v, causal=True)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
+
+
+# --------------------------------------------------------------- flash decode
+
+
+@pytest.mark.parametrize("B,S,H,K,dh,bk", [(2, 512, 4, 2, 64, 256), (3, 256, 8, 1, 128, 64),
+                                           (1, 1024, 2, 2, 32, 256)])
+def test_flash_decode_matches_jax(B, S, H, K, dh, bk):
+    arrays = _inputs(3, (B, 1, H, dh), (B, S, K, dh), (B, S, K, dh))
+    lens = np.random.default_rng(4).integers(1, S + 1, (B,)).astype(np.int32)
+    (jq, jk, jv), (q, k, v) = _both(arrays, torch.float32)
+    want = np.asarray(jax_flash_decode(jq, jk, jv, jnp.asarray(lens), bk=bk))
+    got = fd_ops.flash_decode(q, k, v, torch.from_numpy(lens))
+    assert got.shape == (B, 1, H, dh)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
+
+
+def test_flash_decode_wrapped_ring_matches_jax():
+    """cache_len past S (a wrapped ring buffer) means every slot is valid."""
+    arrays = _inputs(5, (2, 1, 4, 64), (2, 256, 2, 64), (2, 256, 2, 64))
+    lens = np.array([700, 256], np.int32)
+    (jq, jk, jv), (q, k, v) = _both(arrays, torch.float32)
+    want = np.asarray(jax_flash_decode(jq, jk, jv, jnp.asarray(lens)))
+    got = fd_ops.flash_decode(q, k, v, torch.from_numpy(lens))
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
+
+
+def test_flash_decode_full_cache_equals_attention_row():
+    """Decode over a fully valid cache == last row of causal attention."""
+    B, S, H, dh = 1, 256, 2, 64
+    q_full, k, v = (torch.from_numpy(a) for a in _inputs(6, *[(B, S, H, dh)] * 3))
+    full = fa_ops.flash_attention(q_full, k, v, causal=True)
+    dec = fd_ops.flash_decode(q_full[:, -1:].contiguous(), k, v,
+                              torch.tensor([S], dtype=torch.int32))
+    np.testing.assert_allclose(dec[:, 0].numpy(), full[:, -1].numpy(), atol=F32_ATOL)
+
+
+# ---------------------------------------------------------------- dispatch
+
+
+def test_cpu_tensors_reach_the_plain_versions(monkeypatch):
+    """On CPU tensors the wrappers call the plain versions, launch nothing and
+    never touch the kernel library."""
+    calls = []
+
+    def no_library(*a, **kw):
+        raise AssertionError("kernel library requested for CPU tensors")
+
+    monkeypatch.setattr(fa_ops.kernels, "library", no_library)
+    monkeypatch.setattr(fa_ops, "attention_ref",
+                        lambda *a, **kw: calls.append("attention") or attention_ref(*a, **kw))
+    monkeypatch.setattr(fd_ops, "decode_ref",
+                        lambda *a, **kw: calls.append("decode") or decode_ref(*a, **kw))
+    n_fa, n_fd = fa_ops.launches, fd_ops.launches
+    q = torch.zeros(1, 8, 4, 32)
+    k = torch.zeros(1, 8, 2, 32)
+    fa_ops.flash_attention(q, k, k)
+    fd_ops.flash_decode(q[:, :1], k, k, torch.tensor([3], dtype=torch.int32))
+    assert calls == ["attention", "decode"]
+    assert (fa_ops.launches, fd_ops.launches) == (n_fa, n_fd)
+
+
+def test_mixed_devices_raise():
+    q = torch.zeros(1, 8, 4, 32)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, q.to("meta"), q)
+
+
+def test_ragged_lengths_on_cpu_match_dense_reference():
+    """The port takes any S (the Pallas wrappers need S % 128 / % 256 == 0)."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(7, (1, 100, 4, 32), (1, 100, 2, 32),
+                                                    (1, 100, 2, 32)))
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=30)
+    np.testing.assert_allclose(out.numpy(), attention_ref(q, k, v, causal=True, window=30).numpy(),
+                               atol=F32_ATOL)
+    assert out.shape == (1, 100, 4, 32)

@@ -1,0 +1,94 @@
+"""The port stands alone: repro_torch imports neither jax nor repro, and its
+copied configuration equals the reference's."""
+import ast
+import dataclasses
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+
+import repro_torch
+from repro.configs import get_config as jax_get_config
+from repro_torch.configs import get_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+PORT = os.path.join(SRC, "repro_torch")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."))
+
+
+def test_importing_every_module_loads_no_jax_and_no_repro():
+    mods = _port_modules()
+    assert "repro_torch.serve.engine" in mods and "repro_torch.launch.serve" in mods
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": SRC}, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _sources():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_repro_import_in_source(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path}:{node.lineno} imports {name}"
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_yi_9b_config_equals_the_reference(reduced):
+    ref, port = jax_get_config("yi-9b"), get_config("yi-9b")
+    if reduced:
+        ref, port = ref.reduced(), port.reduced()
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    assert (port.d_head, port.supports_decode) == (ref.d_head, ref.supports_decode)
+    assert str(port.dtype).replace("torch.", "") == str(ref.dtype)
+
+
+def test_port_registry_lists_the_reference_archs():
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+
+    assert ARCH_IDS == JAX_ARCH_IDS
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without CUDA, chip_smoke.py exits non-zero and prints no result."""
+    if torch_cuda_available():
+        pytest.skip("a CUDA device is present: chip_smoke.py would run for real")
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": ""})
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+
+
+def torch_cuda_available() -> bool:
+    import torch
+
+    return torch.cuda.is_available()
