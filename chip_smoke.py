@@ -20,6 +20,23 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 5. parity   yi-9b at full width, 4 layers: a 1000-token prefill and 8 decode
             steps through the kernels against the same through the plain
             versions; logits compared at a bf16 bar.
+6. guided   each of the four guided-update kernels against its plain
+            version in f64, f32 and bf16 (f32 compute), at the training
+            path's shape (30 seeds x (31, 2) weights, f64) and at one yi-9b
+            FFN leaf (4096 x 11008); times beside the bytes bound.
+7. train    the second main path: the paper's scan-backend trainer on
+            phishing at full width (30 seeds, 50 epochs, lr 0.2, rho 10,
+            batch 16: 4900 arrivals per fit) through Trainer(device="cuda")
+            for 13 fits; every kernel launch counter is zeroed before and
+            read after; one guided-update launch per arrival (none for
+            SAdagrad). Then seeds 0-2 are held against the numpy train_ps,
+            or, where it cannot run the fit, against the port's CPU fit,
+            within 1e-5 on every arrival; a seed whose chaotic trajectory
+            parts from its reference by round-off grown past that must
+            replay on the CPU from the card's own state (check_fit).
+8. profile  a 30-seed gSSGD fit: the wall time of 50 arrivals, then
+            torch.profiler over the next 50: the card's busy share of the
+            unprofiled wall time and the kernels that take it.
 
 Then a line with the card's name and power limit, a {"kernels": [...]} line,
 and last {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
@@ -42,7 +59,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_BYTES_S = 3.35e12                     # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,      # dense tensor-core bf16
-              torch.float32: 67e12}        # f32 outside the tensor cores
+              torch.float32: 67e12,        # f32 outside the tensor cores
+              torch.float64: 34e12}        # f64 outside the tensor cores (H100 SXM data sheet)
 BARS = {torch.bfloat16: 2e-2, torch.float32: 3e-5}   # the reference's kernel bars
 # Path parity: both paths compute attention in f32 and round to bf16, so they
 # differ only where the summation order flips a bf16 rounding of an attention
@@ -52,6 +70,15 @@ PARITY_BAR = 0.1
 SPIN_CYCLES = 2_000_000                     # ~1 ms at H100 clocks
 ATTN_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 DECODE_SRC = "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"
+GUIDED_SRC = "src/repro_torch/kernels/guided_update/csrc/guided_update.cu"
+# guided-update kernel -> (the TPU kernel it replaces, f64/f32 operations per element)
+GUIDED = {"guided_sgd_update": ("src/repro/kernels/guided_update/kernel.py:83", 7),
+          "guided_momentum_update": ("src/repro/kernels/guided_update/kernel.py:94", 9),
+          "guided_rmsprop_update": ("src/repro/kernels/guided_update/kernel.py:114", 14),
+          "guided_adam_update": ("src/repro/kernels/guided_update/kernel.py:130", 19)}
+GUIDED_BARS = {torch.float64: 1e-12, torch.float32: 1e-6}  # the reference's (DESIGN.md §11)
+TRAIN_BAR = 1e-5          # the reference's scan-vs-train_ps bar (tests/test_delaysim.py)
+TRAIN_CHECKED_SEEDS = 3   # seeds 0-2 of each fit are held against a reference
 
 
 def emit(obj) -> None:
@@ -312,6 +339,289 @@ def path_parity(T, L, refs, cfg, dev, seed):
     return res
 
 
+# ------------------------------------------------- guided update kernels
+
+
+def reset_launches(fa_ops, fd_ops, gu_ops) -> None:
+    fa_ops.launches = 0
+    fd_ops.launches = 0
+    for name in gu_ops.launches:
+        gu_ops.launches[name] = 0
+
+
+def read_launches(fa_ops, fd_ops, gu_ops) -> dict:
+    return {"flash_attention": fa_ops.launches, "flash_decode": fd_ops.launches,
+            **gu_ops.launches}
+
+
+def guided_call(gu_ops, gu_ref, name, w, g, ws, accs, plain):
+    """One call of guided kernel `name` (or its plain version) at the
+    training path's hypers: lr 0.2, DC-ASGD lambda 0.04, adam at step 7."""
+    if name == "guided_sgd_update":
+        f = gu_ref.guided_sgd_update_ref if plain else gu_ops.guided_sgd_update_raw
+        return (f(w, g, ws, 0.2, 0.04),)
+    if name == "guided_momentum_update":
+        f = gu_ref.guided_momentum_update_ref if plain else gu_ops.guided_momentum_update_raw
+        return f(w, g, ws, accs[0], 0.2, 0.04, 0.9)
+    if name == "guided_rmsprop_update":
+        f = gu_ref.guided_rmsprop_update_ref if plain else gu_ops.guided_rmsprop_update_raw
+        return f(w, g, ws, accs[0], 0.2, 0.04, 0.9, 1e-8)
+    f = gu_ref.guided_adam_update_ref if plain else gu_ops.guided_adam_update_raw
+    return f(w, g, ws, accs[0], accs[1], 7, 0.2, 0.04, 0.9, 0.999, 1e-8)
+
+
+def guided_err(out, ref):
+    """Max abs error over every output, and whether each is within its bar:
+    f64 1e-12 and f32 1e-6 (the reference's); bf16 weights within one bf16
+    ulp of the plain version (both compute in f32 and round once; rmsprop's
+    1-beta and adam's bias corrections round at different points, as in the
+    reference's kernel and ref)."""
+    err, ok = 0.0, True
+    for o, r in zip(out, ref):
+        d = (o.double() - r.double()).abs()
+        err = max(err, d.max().item())
+        if o.dtype == torch.bfloat16:
+            ulp = torch.exp2(torch.floor(torch.log2(r.double().abs().clamp(min=2**-126))) - 7)
+            ok &= bool((d <= ulp).all())
+        else:
+            ok &= d.max().item() <= GUIDED_BARS[o.dtype]
+    return err, ok
+
+
+def guided_work(name, shape, dtype):
+    """Operations and bytes of one update: w, g, w_stale read and w' written
+    in `dtype`, each accumulator read and written at the compute dtype."""
+    n = int(np.prod(shape))
+    ct = torch.promote_types(dtype, torch.float32)
+    elt = torch.tensor([], dtype=dtype).element_size()
+    celt = torch.tensor([], dtype=ct).element_size()
+    n_acc = {"guided_sgd_update": 0, "guided_momentum_update": 1,
+             "guided_rmsprop_update": 1, "guided_adam_update": 2}[name]
+    return GUIDED[name][1] * n, n * (4 * elt + 2 * n_acc * celt), ct
+
+
+def check_guided(gu_ops, gu_ref, dev, flush, *, name, shape, dtype, seed):
+    ct = torch.promote_types(dtype, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn(shape, generator=gen, device=dev, dtype=ct)
+    g = 0.01 * torch.randn(shape, generator=gen, device=dev, dtype=ct)
+    ws = w + 0.05 * torch.randn(shape, generator=gen, device=dev, dtype=ct)
+    accs = [torch.rand(shape, generator=gen, device=dev, dtype=ct) * sc for sc in (0.1, 0.05)]
+    w, g, ws = w.to(dtype), g.to(dtype), ws.to(dtype)
+    out = guided_call(gu_ops, gu_ref, name, w, g, ws, accs, plain=False)
+    torch.cuda.synchronize()
+    ref = guided_call(gu_ops, gu_ref, name, w, g, ws, accs, plain=True)
+    err, ok = guided_err(out, ref)
+    big = w.numel() > 1 << 20
+    ms = time_ms(lambda: guided_call(gu_ops, gu_ref, name, w, g, ws, accs, False),
+                 10 if big else 50, flush)
+    plain = time_ms(lambda: guided_call(gu_ops, gu_ref, name, w, g, ws, accs, True),
+                    3 if big else 20, flush)
+    flops, nbytes, ct = guided_work(name, shape, dtype)
+    b_ms, b_by = bound(flops, nbytes, ct)
+    return {"kernel": name, "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
+            "max_abs_err": err, "within_bar": ok, "ms": ms, "plain_ms": plain,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+
+
+# ------------------------------------------------------------- training path
+
+
+def train_fits(ExperimentSpec, n_seeds):
+    """The train phase's fits: name -> spec (phishing, the paper's Table 1
+    protocol: 50 epochs, lr 0.2, rho 10, batch 16)."""
+    fits = {a: ExperimentSpec.for_algo(a, backend="scan", n_seeds=n_seeds)
+            for a in ("SGD", "gSGD", "SSGD", "gSSGD", "ASGD", "gASGD", "SRMSprop",
+                      "gSRMSprop", "SAdagrad", "DC-ASGD")}
+    for opt in ("momentum", "adam"):
+        fits[f"gSSGD-{opt}"] = ExperimentSpec(backend="scan", mode="ssgd",
+                                              strategy="guided_fused", optimizer=opt,
+                                              n_seeds=n_seeds)
+    fits["ASGD-gap_aware"] = ExperimentSpec(backend="scan", mode="asgd", strategy="gap_aware",
+                                            n_seeds=n_seeds)
+    return fits
+
+
+def departs_at(a, b) -> int:
+    """First arrival where two histories differ by more than TRAIN_BAR (len if never)."""
+    d = np.abs(a - b) > TRAIN_BAR
+    return int(np.argmax(d)) if d.any() else len(a)
+
+
+def shadow_check(delaysim, strategies, spec, data, hist, points=5, stretch=50):
+    """Replay stretches of a card fit on the CPU from the card's own state.
+
+    The fit is run again on the card (all seeds); it must reproduce the
+    main path's history bit for bit. At `points` arrivals spread over the
+    run its whole state (weights, stale ring, accumulators, guided window)
+    is copied to the CPU and both continue `stretch` arrivals: the CPU (the
+    kernels' plain versions, held against train_ps and the JAX scan by the
+    tests) must give the card's validation losses and weights within
+    TRAIN_BAR. Returns (max abs error over the stretches, bitwise rerun)."""
+    X, y, k = data[:3]
+    strategy = strategies.get_compensator(spec.strategy, spec.to_guided_config())
+    card = delaysim.ArrivalLoop(spec, strategy, delaysim.prepare(spec, X, y, k), "cuda")
+    err = 0.0
+    for start in np.linspace(0, card.T - stretch, points).astype(int):
+        card.advance(int(start))
+        cpu = card.to("cpu")
+        card.advance(int(start) + stretch)
+        cpu.advance(int(start) + stretch)
+        sl = slice(int(start), int(start) + stretch)
+        err = max(err, (card.avgs[:, sl].cpu() - cpu.avgs[:, sl]).abs().max().item(),
+                  (card.W.cpu() - cpu.W).abs().max().item())
+    card.advance(card.T)
+    rerun_equal = bool(np.array_equal(card.avgs.cpu().numpy().T, hist))
+    return err, rerun_equal
+
+
+def check_fit(name, spec, rep, data, mods):
+    """Hold seeds 0-2 of a card fit against the reference: the numpy
+    train_ps where it runs the fit, else the port's CPU fit. The bar is
+    TRAIN_BAR on every arrival's validation loss and on the final train and
+    validation losses.
+
+    At the paper's lr 0.2 some fits amplify round-off exponentially (a
+    tenfold growth every few hundred arrivals), so two correct float64
+    implementations with different summation orders part by more than the
+    bar before the 4900th arrival; the port's CPU fit parts from train_ps
+    the same way. For a seed that misses the bar, the fit must instead pass
+    `shadow_check`: every stretch of the card's trajectory replayed on the
+    CPU from the card's state agrees within the bar, so the card computes
+    the reference's arrival map and only the amplified round-off differs."""
+    Trainer, train_ps, delaysim, strategies = mods
+    X, y, k, Xte, yte = data
+    hist = np.stack([np.asarray(h[1]) for h in rep.history])             # (T, S)
+    S = TRAIN_CHECKED_SEEDS
+    try:  # the spec's own rules say whether the numpy parameter server runs it
+        spec.replace(backend="sim", n_seeds=1).to_ps_config()
+        sim_able = True
+    except ValueError:
+        sim_able = False
+    cpu = None
+    if sim_able:
+        ref_name = "train_ps"
+        ref_hist, ref_final = [], []
+        for s in range(S):
+            r = train_ps(X, y, k, spec.replace(backend="sim", n_seeds=1, seed=s).to_ps_config())
+            ref_hist.append([h[1] for h in r["history"]])
+            ref_final.append((r["train_loss"], r["val_loss"]))
+        ref_hist = np.array(ref_hist).T
+    else:
+        ref_name = "cpu_fit"
+        cpu = Trainer.from_spec(spec.replace(n_seeds=S), device="cpu").fit(data)
+        ref_hist = np.stack([h[1] for h in cpu.history])
+        ref_final = list(zip(cpu.final["train_loss"], cpu.final["val_loss"]))
+    full = [max(np.abs(hist[:, s] - ref_hist[:, s]).max(),
+                abs(rep.final["train_loss"][s] - ref_final[s][0]),
+                abs(rep.final["val_loss"][s] - ref_final[s][1])) for s in range(S)]
+    full = [float(f) for f in full]
+    res = {"reference": ref_name, "max_abs_err": max(full), "bar": TRAIN_BAR,
+           "checked_seeds": S, "within_bar": [f <= TRAIN_BAR for f in full]}
+    if max(full) <= TRAIN_BAR:
+        return res
+    res["departs_at"] = [departs_at(hist[:, s], ref_hist[:, s]) for s in range(S)]
+    # growth from round-off: the first arrival past each of 1e-13, 1e-11, 1e-9, 1e-7
+    d = np.abs(hist[:, :S] - ref_hist)
+    res["first_past_1e-13_1e-11_1e-9_1e-7"] = [
+        [int(np.argmax(d[:, s] > b)) if (d[:, s] > b).any() else None
+         for b in (1e-13, 1e-11, 1e-9, 1e-7)] for s in range(S)]
+    if sim_able:  # how far the port's CPU fit gets from train_ps on its own
+        cpu = Trainer.from_spec(spec.replace(n_seeds=S), device="cpu").fit(data)
+        cpu_hist = np.stack([h[1] for h in cpu.history])
+        res["cpu_fit_max_abs_err"] = float(np.abs(cpu_hist - ref_hist).max())
+        res["cpu_fit_departs_at"] = [departs_at(cpu_hist[:, s], ref_hist[:, s])
+                                     for s in range(S)]
+    res["shadow_max_abs_err"], res["rerun_bitwise"] = shadow_check(
+        delaysim, strategies, spec, data, hist)
+    if not res["rerun_bitwise"] or res["shadow_max_abs_err"] > TRAIN_BAR:
+        raise RuntimeError(f"train {name}: {max(full)} from {ref_name}, and the card's "
+                           f"trajectory does not replay on the CPU: {res}")
+    return res
+
+
+def train_main_path(data, mods, counters, n_seeds):
+    """Every fit of the training path on the card. The kernels' launch
+    counters are zeroed before the first fit and read after the last; only
+    then is each fit held against its reference (those runs launch kernels
+    too, for comparison). Returns (one result line per fit, the counts)."""
+    Trainer, train_ps, delaysim, strategies = mods
+    reset, read, ExperimentSpec = counters
+    runs = []
+    reset()
+    for name, spec in train_fits(ExperimentSpec, n_seeds).items():
+        before = read()
+        t0 = time.perf_counter()
+        rep = Trainer.from_spec(spec).fit(data)   # device="cuda"
+        wall = time.perf_counter() - t0
+        after = read()
+        used = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        want = 0 if spec.optimizer == "adagrad" else rep.n_steps
+        if sum(used.values()) != want or rep.n_steps != 4900:
+            raise RuntimeError(f"train {name}: launches {used} over {rep.n_steps} arrivals, "
+                               f"want {want}")
+        runs.append((name, spec, rep, wall, used))
+    launches = read()
+    for name in GUIDED:
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} never launched on the training path: {launches}")
+    if launches["flash_attention"] or launches["flash_decode"]:
+        raise RuntimeError(f"attention kernels launched on the training path: {launches}")
+    results = []
+    for name, spec, rep, wall, used in runs:
+        T = rep.n_steps
+        losses = np.concatenate([rep.final["train_loss"], rep.final["val_loss"],
+                                 np.stack([h[1] for h in rep.history]).ravel()])
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"train {name}: non-finite losses")
+        res = {"phase": "train", "fit": name, "mode": spec.mode, "strategy": spec.strategy,
+               "optimizer": spec.optimizer, "n_seeds": n_seeds, "arrivals": T,
+               "wall_s": wall, "arrivals_per_s": T / wall,
+               "seed_arrivals_per_s": rep.steps_per_s, "launches": used,
+               "val_loss_mean": float(np.mean(rep.final["val_loss"])),
+               "test_accuracy_mean": float(np.mean(rep.final["test_accuracy"]))}
+        res.update(check_fit(name, spec, rep, data, mods))
+        emit(res)
+        results.append(res)
+    return results, launches
+
+
+def profile_train(delaysim, strategies, ExperimentSpec, data, n_seeds, arrivals=50):
+    """A gSSGD fit after 100 warm arrivals: the wall time of `arrivals`
+    arrivals, then torch.profiler over as many more (the profiler slows the
+    host): device time per arrival, the card's busy share of the unprofiled
+    wall time, and the kernels that take the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    X, y, k = data[:3]
+    spec = ExperimentSpec.for_algo("gSSGD", backend="scan", n_seeds=n_seeds)
+    strategy = strategies.get_compensator(spec.strategy, spec.to_guided_config())
+    loop = delaysim.ArrivalLoop(spec, strategy, delaysim.prepare(spec, X, y, k), "cuda")
+    loop.advance(100)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()       # the wall time of a window, unprofiled
+    loop.advance(100 + arrivals)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()   # the next window, profiled
+        loop.advance(100 + 2 * arrivals)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return {"phase": "profile_train", "fit": "gSSGD", "n_seeds": n_seeds, "arrivals": arrivals,
+            "wall_ms_per_arrival": wall_ms / arrivals,
+            "profiled_wall_ms_per_arrival": prof_wall_ms / arrivals,
+            "device_ms_per_arrival": dev_ms / arrivals,
+            "device_busy_share": dev_ms / wall_ms,
+            "kernel_launches_per_arrival": sum(e.count for e in kernels) / arrivals,
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "us_per_arrival": e.self_device_time_total / arrivals}
+                            for e in top]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -327,6 +637,12 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode.ref import decode_ref
+    from repro_torch.core.parameter_server import train_ps
+    from repro_torch.data import load_dataset, train_test_split
+    from repro_torch.engine import ExperimentSpec, Trainer, delaysim
+    from repro_torch.engine import strategies
+    from repro_torch.kernels.guided_update import ops as gu_ops
+    from repro_torch.kernels.guided_update import ref as gu_ref
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
 
@@ -369,10 +685,41 @@ def main(argv=None) -> int:
     if bad:
         raise RuntimeError(f"kernel disagrees with its plain version: {bad}")
 
+    # the guided-update kernels: the training path's shape (30 seeds of (31, 2)
+    # f64 weights) and one yi-9b FFN leaf, where the bytes bound is readable
+    n_seeds = 30
+    main_guided = {}
+    for i, name in enumerate(GUIDED):
+        for dtype in (torch.float64, torch.float32, torch.bfloat16):
+            for shape in ((n_seeds, 31, 2), (4096, 11008)):
+                c = check_guided(gu_ops, gu_ref, dev, flush, name=name, shape=shape,
+                                 dtype=dtype, seed=10 * i + len(shape))
+                if dtype == torch.float64 and shape[0] == n_seeds:
+                    c["main_path_shape"] = True
+                    main_guided[name] = c
+                emit({"phase": "guided", **c})
+                if not c["within_bar"]:
+                    raise RuntimeError(f"guided kernel disagrees with its plain version: {c}")
+
     cfg = get_config("yi-9b")
+    gu_ops.launches.update(dict.fromkeys(gu_ops.launches, 0))
     served = serve_main_path(T, serve, fa_ops, fd_ops, cfg, dev, args.seed)
+    if any(gu_ops.launches.values()):
+        raise RuntimeError(f"guided kernels launched on the serve path: {gu_ops.launches}")
     emit(served)
     emit(path_parity(T, L, (attention_ref, decode_ref), cfg, dev, args.seed))
+
+    X, y, k = load_dataset("phishing", seed=0)
+    Xtr, ytr, Xte, yte = train_test_split(X, y, seed=0)
+    data = (Xtr, ytr, k, Xte, yte)
+    t0 = time.perf_counter()
+    _, train_launches = train_main_path(
+        data, (Trainer, train_ps, delaysim, strategies),
+        (lambda: reset_launches(fa_ops, fd_ops, gu_ops),
+         lambda: read_launches(fa_ops, fd_ops, gu_ops), ExperimentSpec), n_seeds)
+    emit({"phase": "train_total", "seconds": time.perf_counter() - t0,
+          "launches": train_launches})
+    emit(profile_train(delaysim, strategies, ExperimentSpec, data, n_seeds))
 
     entries = []
     for name, src, replaces, c in (
@@ -383,6 +730,13 @@ def main(argv=None) -> int:
                         "launches": served["launches"][name], "max_abs_err": c["max_abs_err"],
                         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                         "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+    for name, (replaces, _) in GUIDED.items():
+        c = main_guided[name]
+        entries.append({"name": name, "route": "cuda", "source": GUIDED_SRC,
+                        "replaces": replaces, "launches": train_launches[name],
+                        "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                        "library_ms": None})
     print(card, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,23 @@
+"""Worker-speed / delay topologies: a copy of `repro.common.topologies`.
+
+Per-dispatch compute-time samplers `sampler(worker_id, rng) -> float` that
+the scan simulator's schedule generator (repro_torch.engine.delaysim drives
+core.parameter_server._event_schedule with them) uses to precompute a
+DelaySchedule. `None` keeps the reference loop's literal draw
+(rng.exponential(1.0) + 0.1), preserving rng-stream parity with train_ps.
+"seq" and "barrier" are the deterministic topologies of those execution modes
+and need no sampler. tests/test_torch_spec_copies.py holds every sampler's
+draws equal to the reference's.
+"""
+from __future__ import annotations
+
+TOPOLOGY_SAMPLERS = {
+    "seq": None,
+    "barrier": None,
+    "exp": None,
+    "constant": lambda w, rng: 1.0,
+    "heavy_tail": lambda w, rng: 0.1 + rng.pareto(1.5),
+    "straggler": lambda w, rng: (10.0 if w == 0 else 1.0) * rng.exponential(1.0) + 0.1,
+    "hetero": lambda w, rng: rng.exponential(0.5 * (w + 2)) + 0.1,
+}
+

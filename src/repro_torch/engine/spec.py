@@ -1,0 +1,220 @@
+"""`ExperimentSpec` — the fields of `repro.engine.spec.ExperimentSpec` that
+the sim and scan backends read, with the reference's names, defaults and
+construction-time validation.
+
+    backend="sim"  — the numpy event-driven parameter server
+                     (`PSConfig` + `train_ps`, repro_torch.core.parameter_server);
+    backend="scan" — the torch arrival loop (repro_torch.engine.delaysim):
+                     the same trajectories as the sim to float64 round-off,
+                     `n_seeds` seeds batched, delay topologies via `topology`.
+
+backend="mesh" and backend="dist" are accepted here, as in the reference,
+and refused by the Trainer: they are not ported yet, and neither are their
+fields (mesh, dist, checkpoint and resilience knobs).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.core.guided import GuidedConfig
+from repro_torch.core.parameter_server import PSConfig
+
+BACKENDS = ("mesh", "sim", "scan", "dist")
+MODES = ("seq", "ssgd", "asgd")
+
+# every optimizer the reference implements
+OPTIMIZERS = ("sgd", "momentum", "rmsprop", "adagrad", "adam")
+# the numpy parameter-server reference (_Server._apply) only implements these;
+# the scan backend runs all of OPTIMIZERS (momentum/adam via the fused kernels)
+SIM_OPTIMIZERS = ("sgd", "rmsprop", "adagrad")
+
+# Delay topologies of the scan backend: name -> execution modes it is defined
+# for. seq/barrier are the deterministic topologies implied by those modes;
+# the event-queue ones need mode="asgd" (heterogeneous per-arrival staleness).
+TOPOLOGIES = {
+    "seq": ("seq",),
+    "barrier": ("ssgd",),
+    "exp": ("asgd",),          # train_ps's literal exponential compute times
+    "constant": ("asgd",),     # fixed compute time -> round-robin, s = c-1
+    "heavy_tail": ("asgd",),   # Pareto compute times (rare huge delays)
+    "straggler": ("asgd",),    # one worker 10x slower than the rest
+    "hetero": ("asgd",),       # per-worker mean compute time grows with rank
+}
+
+_DEFAULT_TOPOLOGY = {"seq": "seq", "ssgd": "barrier", "asgd": "exp"}
+
+# algorithm names as printed in the paper's tables -> (mode, strategy, optimizer)
+ALGOS = {
+    "SGD": ("seq", "none", "sgd"),
+    "gSGD": ("seq", "guided_fused", "sgd"),
+    "SSGD": ("ssgd", "none", "sgd"),
+    "gSSGD": ("ssgd", "guided_fused", "sgd"),
+    "ASGD": ("asgd", "none", "sgd"),
+    "gASGD": ("asgd", "guided_fused", "sgd"),
+    "SRMSprop": ("ssgd", "none", "rmsprop"),
+    "gSRMSprop": ("ssgd", "guided_fused", "rmsprop"),
+    "SAdagrad": ("ssgd", "none", "adagrad"),
+    "gSAdagrad": ("ssgd", "guided_fused", "adagrad"),
+    "DC-ASGD": ("asgd", "dc_asgd", "sgd"),
+}
+
+_GUIDED_STRATEGIES = ("guided_fused", "guided_two_pass", "dc_asgd_guided")
+_DC_STRATEGIES = ("dc_asgd", "dc_asgd_guided")
+
+# Strategies that compensate against w_stale and therefore only make sense
+# under asgd execution; the registry classes raise the same message.
+_STALE_REQUIRED = {
+    "dc_asgd": "compensates with the Taylor term g*g*(W - w_stale)",
+    "dc_asgd_guided": "compensates with the Taylor term g*g*(W - w_stale)",
+    "gap_aware": "dampens by |W - w_stale|",
+}
+
+
+def needs_stale_message(strategy: str, why: str, mode: str) -> str:
+    """The one error message for strategy/mode incompatibility — shared by
+    ExperimentSpec.__post_init__ and the DelayCompensator registry classes."""
+    return (f"{strategy} {why} and needs stale weights: "
+            f"use mode='asgd' (got mode={mode!r})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentSpec:
+    """One experiment of the paper's algorithm family (sim and scan fields)."""
+
+    backend: str = "mesh"          # mesh | sim | scan | dist
+    # ------------------------------------------------- shared algorithm knobs
+    mode: str = "ssgd"             # seq | ssgd | asgd (execution/delay model)
+    strategy: str = "none"         # DelayCompensator registry name
+    rho: int = 10                  # delay tolerance / correction period
+    max_consistent: int = 4        # paper: replay at most 4 mini-batches
+    optimizer: str = "sgd"
+    lr: float = 0.2                # paper Table 1 default
+    seed: int = 0
+    # ------------------------------------------------------ sim / scan knobs
+    epochs: int = 50
+    batch_size: int = 16
+    verification_frac: float = 0.2
+    rmsprop_beta: float = 0.9
+    eps: float = 1e-8
+    topology: str = ""             # scan: TOPOLOGIES key ("" -> mode default)
+    n_seeds: int = 1               # scan: batch seeds seed..seed+n_seeds-1
+    # -------------------------------------------- strategy (GuidedConfig) knobs
+    staleness: int = 0
+    dc_lambda: float = 0.04
+    correction_scale: float = 1.0
+    magnitude_weight: float = 0.1
+
+    def __post_init__(self):
+        assert self.backend in BACKENDS, self.backend
+        assert self.mode in MODES, self.mode
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(
+                f"unknown optimizer {self.optimizer!r}; known: {', '.join(OPTIMIZERS)}")
+        if self.backend in ("sim", "dist") and self.optimizer not in SIM_OPTIMIZERS:
+            raise ValueError(
+                f"optimizer {self.optimizer!r} has no numpy server apply rule "
+                f"(backend={self.backend!r} supports {', '.join(SIM_OPTIMIZERS)}); "
+                f"use backend='mesh' or backend='scan' for momentum/adam")
+        # strategy/mode compatibility fails here, at construction, with the
+        # registry's message — not mid-fit.
+        why = _STALE_REQUIRED.get(self.strategy)
+        if why is not None and self.mode != "asgd":
+            raise ValueError(needs_stale_message(self.strategy, why, self.mode))
+        if self.n_seeds < 1:
+            raise ValueError(f"n_seeds must be >= 1 (got {self.n_seeds})")
+        if self.n_seeds > 1 and self.backend != "scan":
+            raise ValueError(
+                f"n_seeds={self.n_seeds} needs the batched scan backend; "
+                f"backend={self.backend!r} runs one seed per fit"
+            )
+        if self.topology:
+            if self.topology not in TOPOLOGIES:
+                raise ValueError(
+                    f"unknown topology {self.topology!r}; known: "
+                    f"{', '.join(TOPOLOGIES)}"
+                )
+            if self.backend not in ("scan", "dist"):
+                raise ValueError(
+                    f"topology={self.topology!r} is a scan/dist-backend knob "
+                    f"(backend={self.backend!r} hardcodes its delay model)"
+                )
+            if self.mode not in TOPOLOGIES[self.topology]:
+                raise ValueError(
+                    f"topology {self.topology!r} is defined for mode(s) "
+                    f"{TOPOLOGIES[self.topology]}, got mode={self.mode!r}"
+                )
+
+    @property
+    def resolved_topology(self) -> str:
+        """The schedule topology this spec runs (mode default when unset)."""
+        return self.topology or _DEFAULT_TOPOLOGY[self.mode]
+
+    def replace(self, **kw) -> "ExperimentSpec":
+        return dataclasses.replace(self, **kw)
+
+    # ------------------------------------------------------------ conversions
+    @property
+    def guided(self) -> bool:
+        return self.strategy in _GUIDED_STRATEGIES
+
+    def to_ps_config(self) -> PSConfig:
+        """Lower to the numpy simulator's config. Any guided_* strategy maps to
+        the paper's literal replay (the sim has exactly one guided path);
+        staleness-Taylor strategies have no sim equivalent."""
+        if self.strategy not in ("none", "guided_fused", "guided_two_pass"):
+            raise ValueError(
+                f"strategy {self.strategy!r} has no parameter-server simulation; "
+                "use backend='mesh' or backend='scan'"
+            )
+        return self.to_schedule_config()
+
+    def to_schedule_config(self, seed: int = None) -> PSConfig:
+        """PSConfig view for the scan backend's data prep + schedule
+        extraction (core.parameter_server.prepare_run). Unlike to_ps_config
+        this does NOT restrict the strategy: on the scan path the strategy
+        stays a live DelayCompensator driving the apply hooks, only the
+        protocol knobs (mode, epochs, batching, rho, seed) are lowered.
+        `seed` overrides spec.seed for the multi-seed sweep."""
+        return PSConfig(
+            mode=self.mode,
+            guided=self.guided,
+            optimizer=self.optimizer,
+            lr=self.lr,
+            epochs=self.epochs,
+            rho=self.rho,
+            batch_size=self.batch_size,
+            max_consistent=self.max_consistent,
+            verification_frac=self.verification_frac,
+            rmsprop_beta=self.rmsprop_beta,
+            eps=self.eps,
+            seed=self.seed if seed is None else seed,
+        )
+
+    def to_guided_config(self) -> GuidedConfig:
+        """Lower to the strategies' config. strategy="dc_asgd" keeps the
+        legacy mode="dc_asgd" spelling, as the reference does."""
+        return GuidedConfig(
+            mode="dc_asgd" if self.strategy in _DC_STRATEGIES else self.mode,
+            guided=self.guided,
+            rho=self.rho,
+            max_consistent=self.max_consistent,
+            staleness=self.staleness,
+            dc_lambda=self.dc_lambda,
+            correction="two_pass" if self.strategy == "guided_two_pass" else "fused",
+            correction_scale=self.correction_scale,
+            magnitude_weight=self.magnitude_weight,
+        )
+
+    @classmethod
+    def for_algo(cls, name: str, **kw) -> "ExperimentSpec":
+        """Spec for a paper-table algorithm name ('gSSGD', 'SRMSprop', ...).
+        Defaults to the sim backend (the paper's own scale) except for
+        strategies with no sim equivalent (DC-ASGD, which defaults to the
+        reference's mesh); pass backend explicitly for the scan backend."""
+        try:
+            mode, strategy, optimizer = ALGOS[name]
+        except KeyError:
+            raise KeyError(f"unknown algorithm {name!r}; known: {', '.join(ALGOS)}") from None
+        sim_ok = strategy in ("none", "guided_fused", "guided_two_pass")
+        kw.setdefault("backend", "sim" if sim_ok else "mesh")
+        return cls(mode=mode, strategy=strategy, optimizer=optimizer, **kw)

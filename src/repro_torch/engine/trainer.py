@@ -1,0 +1,112 @@
+"""`Trainer` — the facade over the ported backends, `Report` — its result.
+
+    spec = ExperimentSpec(backend="scan", mode="asgd", strategy="dc_asgd",
+                          topology="heavy_tail", n_seeds=30)
+    report = Trainer.from_spec(spec).fit((Xtr, ytr, n_classes, Xte, yte))
+    report.val_loss, report.history, report.steps_per_s
+
+backend="scan" runs the torch arrival loop (repro_torch.engine.delaysim) on
+`device` ("cuda" unless the caller asks for the CPU; a missing card raises,
+there is no silent CPU run). backend="sim" runs the numpy parameter server
+(`train_ps`) on the host, whatever `device` says. backend="mesh" and
+backend="dist" are not ported yet and raise NotImplementedError.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.core.parameter_server import train_ps
+from repro_torch.engine import delaysim
+from repro_torch.engine.spec import ExperimentSpec
+from repro_torch.engine.strategies import get_compensator
+
+
+@dataclasses.dataclass
+class Report:
+    """Result of a Trainer.fit run. history: per-arrival (t, avg_err) pairs
+    (scan with n_seeds > 1: avg_err is an (n_seeds,) array)."""
+
+    backend: str
+    spec: ExperimentSpec
+    history: list
+    final: dict
+    model: Any = None          # LogisticRegression (scan n_seeds>1: a list of them)
+    wall_time_s: float = 0.0   # wall time of fit()
+    steps_per_s: float = 0.0   # server steps (x seeds on scan) per second of fit()
+    n_steps: int = 0           # server steps this fit ran (per seed), from the schedule
+
+    @property
+    def final_loss(self) -> Optional[float]:
+        return self.final.get("train_loss")
+
+    @property
+    def val_loss(self) -> Optional[float]:
+        return self.final.get("val_loss")
+
+    @property
+    def test_accuracy(self) -> Optional[float]:
+        return self.final.get("test_accuracy")
+
+
+class Trainer:
+    """Facade dispatching an ExperimentSpec to its backend. Construction
+    resolves the strategy (unknown names fail here, not mid-fit) and checks
+    the device; data preparation and training happen inside fit()."""
+
+    def __init__(self, spec: ExperimentSpec, device="cuda"):
+        if spec.backend in ("mesh", "dist"):
+            raise NotImplementedError(
+                f"backend={spec.backend!r} is not yet ported to repro_torch; "
+                f"ported: 'sim', 'scan'")
+        self.spec = spec
+        self.device = torch.device(device)
+        self.strategy = None
+        if spec.backend == "scan":
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    "device='cuda' but no CUDA device is available; pass "
+                    "device='cpu' to run the scan backend on the CPU")
+            self.strategy = get_compensator(spec.strategy, spec.to_guided_config())
+        else:
+            spec.to_ps_config()  # validates mode/strategy for the simulator
+
+    @classmethod
+    def from_spec(cls, spec: ExperimentSpec, device="cuda") -> "Trainer":
+        return cls(spec, device=device)
+
+    def fit(self, data=None, steps: Optional[int] = None,
+            on_step: Optional[Callable] = None, resume: bool = False) -> Report:
+        """Run the experiment. `data` is (X, y, n_classes[, Xtest, ytest]).
+        `steps`, `on_step` and `resume` belong to the mesh backend and are
+        refused here, as the reference refuses them on sim/scan."""
+        t0 = time.perf_counter()
+        if steps is not None or on_step is not None:
+            raise ValueError(
+                "steps/on_step apply to the mesh backend; the sim/scan "
+                "backends run the paper's epoch protocol (set spec.epochs)"
+            )
+        if resume:
+            raise ValueError(
+                "resume applies to the mesh backend; sim/scan runs are "
+                "single fit calls with nothing to resume into"
+            )
+        backend = self.spec.backend
+        if data is None:
+            raise ValueError(f"{backend} backend needs data=(X, y, n_classes[, Xtest, ytest])")
+        X, y, n_classes, *rest = data
+        Xtest, ytest = (rest + [None, None])[:2]
+        if backend == "sim":
+            res = train_ps(X, y, n_classes, self.spec.to_ps_config(), Xtest, ytest)
+        else:
+            res = delaysim.run(self.spec, X, y, n_classes, Xtest, ytest,
+                               strategy=self.strategy, device=self.device)
+        final = {k: res[k] for k in ("train_loss", "val_loss", "test_accuracy") if k in res}
+        report = Report(backend=backend, spec=self.spec, history=res["history"],
+                        final=final, model=res["model"], n_steps=res["n_steps"])
+        report.wall_time_s = time.perf_counter() - t0
+        report.steps_per_s = report.n_steps * self.spec.n_seeds / max(report.wall_time_s, 1e-9)
+        return report

@@ -119,13 +119,17 @@ def kernel_fn(name: str, argtypes: list):
     return fn
 
 
-def dtype_code(dtype: torch.dtype) -> int:
-    """The C entry points' dtype argument: 0 = float32, 1 = bfloat16."""
-    if dtype == torch.float32:
-        return 0
-    if dtype == torch.bfloat16:
-        return 1
-    raise TypeError(f"kernels take float32 or bfloat16, got {dtype}")
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+
+
+def dtype_code(dtype: torch.dtype, allowed=(torch.float32, torch.bfloat16)) -> int:
+    """The C entry points' dtype argument: 0 = float32, 1 = bfloat16,
+    2 = float64. `allowed` names the dtypes the caller's kernel is built for
+    (the attention kernels: float32 and bfloat16)."""
+    if dtype not in allowed:
+        names = ", ".join(str(d).replace("torch.", "") for d in allowed)
+        raise TypeError(f"kernel takes {names}, got {dtype}")
+    return _DTYPE_CODES[dtype]
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -1,0 +1,161 @@
+"""Public wrappers of the fused guided update kernels (csrc/guided_update.cu)
+and the whole-update dispatch `fused_update_for`.
+
+CUDA tensors launch the kernel (or raise); CPU tensors run the plain version
+in `ref.py`. There is no fallback from a failed launch. `launches` counts, per
+kernel, the wrapper calls that launched it, and only those.
+
+Kernel inputs: `w`, `g` and `w_stale` of one dtype (float64, float32 or
+bfloat16) and one shape, contiguous; accumulators at the compute dtype
+`promote(w.dtype, float32)`. Any element count: the kernels mask their own
+tail. The scalars are rounded to the compute dtype here, on the host, as
+`kernel.py` builds its scalar pack; adam's bias corrections come from the
+Python step `t`, so nothing reads a device value back.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.guided_update import ref as R
+
+#: optimizers with a whole-update fused implementation (adagrad has none: the
+#: scan backend keeps its inline update)
+FUSED_OPTIMIZERS = ("sgd", "momentum", "rmsprop", "adam")
+#: accumulator tuple arity per fused optimizer (what `acc` carries)
+FUSED_ACC_ARITY = {"sgd": 0, "momentum": 1, "rmsprop": 1, "adam": 2}
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+_P, _I, _N, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+_ARGTYPES = {
+    "guided_sgd_update": [_P] * 4 + [_N, _D, _D, _I, _P],
+    "guided_momentum_update": [_P] * 6 + [_N, _D, _D, _D, _I, _I, _P],
+    "guided_rmsprop_update": [_P] * 6 + [_N, _D, _D, _D, _D, _I, _P],
+    "guided_adam_update": [_P] * 8 + [_N] + [_D] * 9 + [_I, _P],
+}
+
+launches = dict.fromkeys(_ARGTYPES, 0)
+
+
+def _ct(dtype):
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _round(ct, *xs):
+    """Python floats rounded to the compute dtype, held exactly as doubles."""
+    np_t = np.float64 if ct == torch.float64 else np.float32
+    return [float(np_t(x)) for x in xs]
+
+
+def _check(w, g, w_stale, accs):
+    for name, a in (("g", g), ("w_stale", w_stale)):
+        if a.shape != w.shape or a.dtype != w.dtype:
+            raise ValueError(f"{name} must match w {tuple(w.shape)} {w.dtype}; "
+                             f"got {tuple(a.shape)} {a.dtype}")
+    ct = _ct(w.dtype)
+    for a in accs:
+        if a.shape != w.shape or a.dtype != ct:
+            raise ValueError(f"accumulators must be {tuple(w.shape)} {ct}; "
+                             f"got {tuple(a.shape)} {a.dtype}")
+    if not all(a.is_contiguous() for a in (w, g, w_stale, *accs)):
+        raise ValueError("guided_update kernels need contiguous tensors")
+    if w.numel() == 0:
+        raise ValueError("guided_update kernels need at least one element")
+    return ct
+
+
+def _launch(name, tensors, scalars, dtype, device, *flags):
+    """Call C entry point `name` on the current stream; count the launch."""
+    with torch.cuda.device(device):
+        fn = kernels.kernel_fn(name, _ARGTYPES[name])
+        rc = fn(*(t.data_ptr() for t in tensors), tensors[0].numel(), *scalars, *flags,
+                kernels.dtype_code(dtype, _DTYPES), torch.cuda.current_stream().cuda_stream)
+    kernels.check_launch(name, rc)
+    launches[name] += 1
+
+
+def guided_sgd_update_raw(w, g, w_stale, lr, lam):
+    """g~ = g + lam*g*g*(w - w_stale); returns w - lr*g~ in w.dtype."""
+    if not kernels.use_kernel(w, g, w_stale):
+        return R.guided_sgd_update_ref(w, g, w_stale, lr, lam)
+    ct = _check(w, g, w_stale, ())
+    out = torch.empty_like(w)
+    _launch("guided_sgd_update", (w, g, w_stale, out), _round(ct, lr, lam), w.dtype, w.device)
+    return out
+
+
+def guided_momentum_update_raw(w, g, w_stale, m, lr, lam, beta, *, nesterov: bool = False):
+    """Fused compensate + momentum accumulate + apply. Returns (new w, new m)."""
+    if not kernels.use_kernel(w, g, w_stale, m):
+        return R.guided_momentum_update_ref(w, g, w_stale, m, lr, lam, beta, nesterov=nesterov)
+    ct = _check(w, g, w_stale, (m,))
+    out, m_out = torch.empty_like(w), torch.empty_like(m)
+    _launch("guided_momentum_update", (w, g, w_stale, m, out, m_out),
+            _round(ct, lr, lam, beta), w.dtype, w.device, int(nesterov))
+    return out, m_out
+
+
+def guided_rmsprop_update_raw(w, g, w_stale, r, lr, lam, beta, eps):
+    """Fused compensate + rmsprop accumulate + apply. Returns (new w, new r)."""
+    if not kernels.use_kernel(w, g, w_stale, r):
+        return R.guided_rmsprop_update_ref(w, g, w_stale, r, lr, lam, beta, eps)
+    ct = _check(w, g, w_stale, (r,))
+    out, r_out = torch.empty_like(w), torch.empty_like(r)
+    _launch("guided_rmsprop_update", (w, g, w_stale, r, out, r_out),
+            _round(ct, lr, lam, beta, eps), w.dtype, w.device)
+    return out, r_out
+
+
+def guided_adam_update_raw(w, g, w_stale, m, v, t, lr, lam, b1, b2, eps):
+    """Fused compensate + adam moments + bias-corrected apply.
+
+    `t` is the ALREADY-incremented step (a Python int); `b1`/`b2` are python
+    floats, so the pre-rounded (1-b) factors match the reference's
+    weak-typed promotion. Returns (new w, new m, new v)."""
+    if not kernels.use_kernel(w, g, w_stale, m, v):
+        return R.guided_adam_update_ref(w, g, w_stale, m, v, t, lr, lam, b1, b2, eps)
+    ct = _check(w, g, w_stale, (m, v))
+    np_t = np.float64 if ct == torch.float64 else np.float32
+    bc1 = np_t(1.0) - np_t(b1) ** np_t(t)
+    bc2 = np_t(1.0) - np_t(b2) ** np_t(t)
+    out, m_out, v_out = torch.empty_like(w), torch.empty_like(m), torch.empty_like(v)
+    _launch("guided_adam_update", (w, g, w_stale, m, v, out, m_out, v_out),
+            _round(ct, lr, lam, b1, 1.0 - b1, b2, 1.0 - b2, bc1, bc2, eps), w.dtype, w.device)
+    return out, m_out, v_out
+
+
+def fused_update_for(name: str, *, beta: float = 0.9, nesterov: bool = False,
+                     b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    """One whole-update callable for optimizer `name`, uniform signature:
+
+        f(w, g, w_stale, acc, t, lr, lam) -> (new_w, new_acc)
+
+    `acc` is the accumulator tuple — () for sgd, (m,) for momentum, (r,) for
+    rmsprop, (m, v) for adam — and `t` the already-incremented adam step
+    (ignored by the others). Hypers are python floats/bools baked into the
+    closure. Raises KeyError for optimizers with no fused form (adagrad)."""
+    if name not in FUSED_OPTIMIZERS:
+        raise KeyError(f"no fused whole-update for optimizer {name!r}; "
+                       f"fused: {', '.join(FUSED_OPTIMIZERS)}")
+    if name == "sgd":
+        def f(w, g, ws, acc, t, lr, lam):
+            return guided_sgd_update_raw(w, g, ws, lr, lam), acc
+    elif name == "momentum":
+        def f(w, g, ws, acc, t, lr, lam):
+            w2, m2 = guided_momentum_update_raw(w, g, ws, acc[0], lr, lam, beta,
+                                                nesterov=nesterov)
+            return w2, (m2,)
+    elif name == "rmsprop":
+        def f(w, g, ws, acc, t, lr, lam):
+            w2, r2 = guided_rmsprop_update_raw(w, g, ws, acc[0], lr, lam, beta, eps)
+            return w2, (r2,)
+    else:  # adam
+        def f(w, g, ws, acc, t, lr, lam):
+            w2, m2, v2 = guided_adam_update_raw(w, g, ws, acc[0], acc[1], t, lr, lam,
+                                                b1, b2, eps)
+            return w2, (m2, v2)
+    f.optimizer = name
+    return f

@@ -24,7 +24,14 @@ def _port_modules():
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _port_modules()
-    assert "repro_torch.serve.engine" in mods and "repro_torch.launch.serve" in mods
+    for must in ("repro_torch.serve.engine", "repro_torch.launch.serve",
+                 "repro_torch.engine.delaysim", "repro_torch.engine.trainer",
+                 "repro_torch.engine.strategies", "repro_torch.engine.spec",
+                 "repro_torch.core.parameter_server", "repro_torch.core.guided",
+                 "repro_torch.common.topologies", "repro_torch.data.uci_analogs",
+                 "repro_torch.kernels.guided_update.ops",
+                 "repro_torch.kernels.guided_update.ref"):
+        assert must in mods, must
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

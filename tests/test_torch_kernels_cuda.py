@@ -1,4 +1,6 @@
-"""The hand-written CUDA kernels on the card, against their plain versions.
+"""The hand-written CUDA kernels on the card, against their plain versions:
+flash_attention, flash_decode and the four guided-update kernels, and a short
+scan-trainer fit on the card against the same fit on the CPU.
 
 The `cuda` fixture skips them without an NVIDIA GPU (the kernels have no
 CPU mode). This file imports no JAX, so it runs on a card machine without the
@@ -6,6 +8,7 @@ reference installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_kernels_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -80,3 +83,100 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         fd_ops.flash_decode(qd, kc, kc, torch.ones(1, dtype=torch.int32, device=cuda))
     with pytest.raises(TypeError):
         fd_ops.flash_decode(qd[:, :, :8], kc, kc, torch.ones(1, dtype=torch.int64, device=cuda))
+
+
+# ------------------------------------------------- guided update kernels
+
+GUIDED_ATOL = {torch.float64: 1e-12, torch.float32: 1e-6}
+
+
+def _guided_inputs(cuda, dtype, n, seed):
+    from repro_torch.kernels.guided_update.ops import _ct
+
+    g_ = torch.Generator(device=cuda).manual_seed(seed)
+    ct = _ct(dtype)
+    w = torch.randn(n, generator=g_, device=cuda, dtype=ct)
+    g = 0.01 * torch.randn(n, generator=g_, device=cuda, dtype=ct)
+    ws = w + 0.05 * torch.randn(n, generator=g_, device=cuda, dtype=ct)
+    accs = [torch.rand(n, generator=g_, device=cuda, dtype=ct) * s for s in (0.1, 0.05)]
+    return w.to(dtype), g.to(dtype), ws.to(dtype), accs
+
+
+def _guided_close(out, ref, dtype):
+    """Weights: within the dtype's bar, bf16 within one bf16 ulp of the plain
+    version's value (both compute in f32; rmsprop's 1-beta and adam's bias
+    corrections are rounded at different points, as in the reference).
+    Accumulators (f32 at bf16 weights): the f32 bar."""
+    for i, (o, r) in enumerate(zip(out, ref)):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        if o.dtype == torch.bfloat16:
+            ulp = torch.exp2(torch.floor(torch.log2(r.float().abs().clamp(min=2**-126))) - 7)
+            assert bool(((o.float() - r.float()).abs() <= ulp).all()), i
+        else:
+            err = (o - r).abs().max().item()
+            assert err <= GUIDED_ATOL.get(o.dtype, 1e-6), (i, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["sgd", "momentum", "nesterov", "rmsprop", "adam"])
+@pytest.mark.parametrize("n", [1860, 4096 * 257 + 3])
+def test_guided_update_kernels_on_card(cuda, dtype, kind, n):
+    from repro_torch.kernels.guided_update import ops
+    from repro_torch.kernels.guided_update import ref as R
+
+    w, g, ws, (a0, a1) = _guided_inputs(cuda, dtype, n, seed=n % 97)
+    name = "guided_momentum_update" if kind == "nesterov" else f"guided_{kind}_update"
+    n0 = ops.launches[name]
+    if kind == "sgd":
+        out = (ops.guided_sgd_update_raw(w, g, ws, 0.2, 0.04),)
+        ref = (R.guided_sgd_update_ref(w, g, ws, 0.2, 0.04),)
+    elif kind in ("momentum", "nesterov"):
+        out = ops.guided_momentum_update_raw(w, g, ws, a0, 0.2, 0.04, 0.9,
+                                             nesterov=kind == "nesterov")
+        ref = R.guided_momentum_update_ref(w, g, ws, a0, 0.2, 0.04, 0.9,
+                                           nesterov=kind == "nesterov")
+    elif kind == "rmsprop":
+        out = ops.guided_rmsprop_update_raw(w, g, ws, a0, 0.2, 0.04, 0.9, 1e-8)
+        ref = R.guided_rmsprop_update_ref(w, g, ws, a0, 0.2, 0.04, 0.9, 1e-8)
+    else:
+        out = ops.guided_adam_update_raw(w, g, ws, a0, a1, 7, 0.2, 0.04, 0.9, 0.999, 1e-8)
+        ref = R.guided_adam_update_ref(w, g, ws, a0, a1, 7, 0.2, 0.04, 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+    assert ops.launches[name] == n0 + 1
+    _guided_close(out, ref, dtype)
+
+
+def test_guided_update_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from repro_torch.kernels.guided_update import ops
+
+    w = torch.zeros(64, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="must match w"):
+        ops.guided_sgd_update_raw(w, w.float(), w, 0.1, 0.0)
+    with pytest.raises(ValueError, match="accumulators"):
+        ops.guided_momentum_update_raw(w, w, w, w.float(), 0.1, 0.0, 0.9)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.guided_sgd_update_raw(w[::2], w[::2], w[::2], 0.1, 0.0)
+    with pytest.raises(TypeError):
+        wh = w.half()
+        ops.guided_sgd_update_raw(wh, wh, wh, 0.1, 0.0)
+
+
+def test_scan_trainer_on_card_matches_cpu(cuda):
+    """A short scan fit on the card: one guided-update launch per arrival
+    covering every seed, the same trajectory as the CPU run."""
+    from repro_torch.data import load_dataset, train_test_split
+    from repro_torch.engine import ExperimentSpec, Trainer
+    from repro_torch.kernels.guided_update import ops
+
+    X, y, k = load_dataset("new_thyroid", seed=0)
+    Xtr, ytr, Xte, yte = train_test_split(X, y, seed=1)
+    for optimizer in ("sgd", "rmsprop", "momentum", "adam"):
+        spec = ExperimentSpec(backend="scan", mode="asgd", strategy="dc_asgd_guided",
+                              optimizer=optimizer, lr=0.05, epochs=3, rho=4, n_seeds=3)
+        n0 = sum(ops.launches.values())
+        rep = Trainer.from_spec(spec).fit((Xtr, ytr, k, Xte, yte))
+        assert sum(ops.launches.values()) - n0 == rep.n_steps > 0
+        cpu = Trainer.from_spec(spec, device="cpu").fit((Xtr, ytr, k, Xte, yte))
+        h = np.stack([x[1] for x in rep.history])
+        hc = np.stack([x[1] for x in cpu.history])
+        assert np.abs(h - hc).max() <= 1e-9
