@@ -10,9 +10,11 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 2. build    nvcc builds every kernel of the port from its .cu source (sm_90a).
 3. kernels  each kernel against its plain PyTorch version on the card, at
             yi-9b's head shapes (H=32, K=4, dh=128), in bf16 and f32, ragged
-            lengths included; max abs error beside its bar, kernel / plain /
-            library (scaled_dot_product_attention, a yardstick only) times,
-            and the least time the card could take (bytes or FLOPs bound).
+            lengths included, and at the shapes each serve path gives it
+            (yi-9b's and jamba's, H=64, K=8); max abs error beside its bar,
+            kernel / plain / library (scaled_dot_product_attention, a
+            yardstick only) times, and the least time the card could take
+            (bytes or FLOPs bound).
 4. serve    the main path: yi-9b at full width and depth (48 layers, bf16,
             random weights from --seed) behind ServeEngine(max_batch=8),
             16 staggered requests; every kernel launch counter is zeroed just
@@ -37,9 +39,28 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 8. profile  a 30-seed gSSGD fit: the wall time of 50 arrivals, then
             torch.profiler over the next 50: the card's busy share of the
             unprofiled wall time and the kernels that take it.
+9. scan     the selective-scan kernel against its plain version, f32, at
+            the hybrid path's shape (B=1, S=2048, ed=16384, n=16), odd
+            lengths (S = 1, 17, 1000), B=2 with h0 chained over two calls,
+            inputs drawn as the model draws them; error beside its bar,
+            kernel and plain times, and the bound.
+10. serve_hybrid  the third main path: jamba at full width, one period of
+            8 layers (attention at l4, Mamba at the other 7), no experts,
+            bf16, random weights from --seed, behind ServeEngine(max_batch=8,
+            max_len=2112), 16 staggered requests as in phase 4; every launch
+            counter zeroed before and read after: 7 selective_scan and 1
+            flash_attention per admission, 1 flash_decode per decode step.
+11. parity_hybrid  the same model: a 1000-token prefill and 8 decode steps
+            through the kernels against the same through the plain versions,
+            with the prefill's hidden-state gap after every layer.
+12. profile_hybrid  torch.profiler over one 2048-token prefill and one
+            decode step of 8 slots: device time and selective_scan's share.
 
-Then a line with the card's name and power limit, a {"kernels": [...]} line,
-and last {"ok": true, "device": {...}}. Exits 1 without a CUDA device.
+The yi-9b phases (3-5) run first and free their model before the hybrid's.
+Then a line with the card's name and power limit, a {"kernels": [...]} line
+listing all seven kernels (flash_attention and flash_decode once for each
+serve path, at that path's shape and with that path's launches), and last
+{"ok": true, "device": {...}}. Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -67,10 +88,22 @@ BARS = {torch.bfloat16: 2e-2, torch.float32: 3e-5}   # the reference's kernel ba
 # output (1 ulp, 2^-8 relative); through 4 layers that moves logits of O(1)
 # by at most a few bf16 ulps of their size.
 PARITY_BAR = 0.1
+# The selective scan's exponentials issue on the special-function units:
+# 16 a clock per SM, 132 SMs at the 1.98 GHz boost clock (H100 SXM).
+PEAK_EXP_S = 16 * 132 * 1.98e9
+SCAN_BAR = 1e-4        # the reference's selective-scan bar (tests/test_kernels.py)
+# Hybrid path parity: the same bar as yi-9b's, and the margin is thin (0.086
+# read on the H100 at 700 W). The scan runs in f32 on both sides; its output
+# is rounded to bf16, where a 1e-6-relative difference flips a rounding now
+# and then, and 8 layers of width 8192 carry those flips to logits of size
+# about 4.7, where one bf16 ulp is 0.031. The parity line carries the
+# prefill's hidden-state gap after every layer, to show where it grows.
+HYBRID_PARITY_BAR = 0.1
 SPIN_CYCLES = 2_000_000                     # ~1 ms at H100 clocks
 ATTN_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 DECODE_SRC = "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"
 GUIDED_SRC = "src/repro_torch/kernels/guided_update/csrc/guided_update.cu"
+SCAN_SRC = "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu"
 # guided-update kernel -> (the TPU kernel it replaces, f64/f32 operations per element)
 GUIDED = {"guided_sgd_update": ("src/repro/kernels/guided_update/kernel.py:83", 7),
           "guided_momentum_update": ("src/repro/kernels/guided_update/kernel.py:94", 9),
@@ -134,10 +167,10 @@ def bound(flops, nbytes, dtype):
 # ------------------------------------------------------------------ phases
 
 
-def check_attention(fa_ops, attention_ref, dev, flush, *, S, window, dtype, seed):
+def check_attention(fa_ops, attention_ref, dev, flush, *, H, K, S, window, dtype, seed):
     import torch.nn.functional as F
 
-    B, H, K, dh = 1, 32, 4, 128
+    B, dh = 1, 128
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, S, H, dh, generator=g, device=dev).to(dtype)
     k = torch.randn(B, S, K, dh, generator=g, device=dev).to(dtype)
@@ -160,10 +193,10 @@ def check_attention(fa_ops, attention_ref, dev, flush, *, S, window, dtype, seed
             "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_decode(fd_ops, decode_ref, dev, flush, *, S, lens, dtype, seed):
+def check_decode(fd_ops, decode_ref, dev, flush, *, H, K, S, lens, dtype, seed):
     import torch.nn.functional as F
 
-    B, H, K, dh = len(lens), 32, 4, 128
+    B, dh = len(lens), 128
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, 1, H, dh, generator=g, device=dev).to(dtype)
     kc = torch.randn(B, S, K, dh, generator=g, device=dev).to(dtype)
@@ -187,18 +220,42 @@ def check_decode(fd_ops, decode_ref, dev, flush, *, S, lens, dtype, seed):
             "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def serve_main_path(T, serve, fa_ops, fd_ops, cfg, dev, seed):
+def path_launches(T, cfg, prefills: int, decode_steps: int):
+    """The launches a serve run must make: per admission one flash_attention
+    per attention layer and one selective_scan per Mamba layer, per decode
+    step one flash_decode per attention layer, and nothing else. Returns
+    (the counts, the kernels of the path)."""
+    kinds = [T.mixer_kind(cfg, i) for i in range(T.period(cfg))]
+    n_attn = T.n_super(cfg) * kinds.count("attn")
+    n_mamba = T.n_super(cfg) * kinds.count("mamba")
+    want = dict.fromkeys(GUIDED, 0)
+    want.update(flash_attention=n_attn * prefills, flash_decode=n_attn * decode_steps,
+                selective_scan=n_mamba * prefills)
+    on_path = (("flash_attention", "flash_decode") if n_attn else ()) + (
+        ("selective_scan",) if n_mamba else ())
+    return want, on_path
+
+
+def init_model(T, cfg, dev, seed):
+    """Random weights from `seed` on the card; returns (params, seconds)."""
+    t0 = time.perf_counter()
+    params = T.model_init(torch.Generator(device=dev).manual_seed(seed), cfg, dev)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def serve_main_path(T, serve, counters, cfg, params, seed, *, phase, profile):
+    """16 staggered requests behind ServeEngine(max_batch=8, max_len=2112).
+    Every launch counter is zeroed just before the requests are submitted and
+    read just after the engine drains; the counts must be the path's. Then
+    `profile(engine, serve, cfg, rng)`; its line is emitted here."""
+    reset, read = counters
     rng = np.random.default_rng(seed)
     n_req = 16
     lens = rng.integers(128, 2049, n_req)
     lens[:4] = (128, 2048, 1000, 1337)        # both ends and two ragged lengths
     gens = rng.integers(32, 65, n_req)
     max_len = 2048 + 64
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = T.model_init(gen, cfg, dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
     engine = serve.ServeEngine(params, cfg, max_batch=8, max_len=max_len)
     engine.run([serve.Request(rng.integers(0, cfg.vocab_size, 64).tolist(), max_new_tokens=4)])
     engine.reset_stats()
@@ -210,8 +267,7 @@ def serve_main_path(T, serve, fa_ops, fd_ops, cfg, dev, seed):
         reqs.append(serve.Request(rng.integers(0, cfg.vocab_size, int(lens[i])).tolist(),
                                   max_new_tokens=int(gens[i]), sampling=sp))
     torch.cuda.reset_peak_memory_stats()
-    fa_ops.launches = 0
-    fd_ops.launches = 0
+    reset()
     for r in reqs:
         engine.submit(r)
     decode_ms, decode_tokens = [], 0
@@ -223,34 +279,32 @@ def serve_main_path(T, serve, fa_ops, fd_ops, cfg, dev, seed):
         if engine.prefill_calls == n_pre:
             decode_ms.append((time.perf_counter() - t) * 1e3)
             decode_tokens += engine.slot_steps - n_slots
-    launches = {"flash_attention": fa_ops.launches, "flash_decode": fd_ops.launches}
+    launches = read()
     stats = engine.stats()
     comps = engine.completions
     if len(comps) != n_req:
-        raise RuntimeError(f"served {len(comps)} of {n_req} requests")
+        raise RuntimeError(f"{phase}: served {len(comps)} of {n_req} requests")
     for c in comps:
         r = reqs[c.request_id - 1]  # id 0 was the warm-up request
         if c.new_tokens != r.max_new_tokens or not all(0 <= x < cfg.vocab_size for x in c.tokens):
-            raise RuntimeError(f"request {c.request_id}: bad completion {c.tokens[:8]}...")
-    want = {"flash_attention": cfg.n_layers * stats["prefill_calls"],
-            "flash_decode": cfg.n_layers * stats["decode_steps"]}
-    if launches != want or min(launches.values()) <= 0:
-        raise RuntimeError(f"kernel launches {launches} != one per layer per call {want}")
-    prof = profile_decode(engine, serve, cfg, rng)
+            raise RuntimeError(f"{phase} request {c.request_id}: bad completion {c.tokens[:8]}...")
+    want, on_path = path_launches(T, cfg, stats["prefill_calls"], stats["decode_steps"])
+    if launches != want or any(launches[k] <= 0 for k in on_path):
+        raise RuntimeError(f"{phase}: kernel launches {launches} != the path's {want}")
     result = {
-        "phase": "serve", "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "dtype": cfg.compute_dtype, "max_batch": 8, "max_len": max_len, "requests": n_req,
         "prompt_lens": [int(x) for x in lens], "new_tokens": [int(x) for x in gens],
-        "init_s": init_s, "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
+        "wall_s": stats["wall_s"], "tokens_per_s": stats["tokens_per_s"],
         "decode_tok_s": decode_tokens / (sum(decode_ms) / 1e3),
         "median_decode_step_ms": statistics.median(decode_ms),
         "mean_ttft_s": stats["mean_ttft_s"], "prefill_calls": stats["prefill_calls"],
         "decode_steps": stats["decode_steps"], "occupancy": stats["occupancy"],
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches,
+        "launches": {k: v for k, v in launches.items() if v},
     }
-    emit(prof)
-    del engine, params
+    emit(profile(engine, serve, cfg, rng))
+    del engine
     torch.cuda.empty_cache()
     return result
 
@@ -304,54 +358,180 @@ def profile_decode(engine, serve, cfg, rng, steps: int = 8):
                             for e in top]}
 
 
-def path_parity(T, L, refs, cfg, dev, seed):
-    attention_ref, decode_ref = refs
-    cfg4 = cfg.replace(n_layers=4)
-    params = T.model_init(torch.Generator(device=dev).manual_seed(seed + 1), cfg4, dev)
+def device_summary(prof, top: int = 6) -> dict:
+    """Device ms of a torch.profiler window, and its largest kernels."""
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    scan = sum(e.self_device_time_total for e in kernels if "scan_kernel" in e.key) / 1e3
+    big = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    return {"device_ms": total, "selective_scan_ms": scan,
+            "selective_scan_share": scan / total if total else 0.0,
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3} for e in big]}
+
+
+def profile_hybrid(engine, serve, cfg, rng):
+    """torch.profiler over one 2048-token prefill (into fresh caches, after a
+    warm-up) and over one decode step with all 8 slots busy (prompts of 1024
+    tokens): device time, selective_scan's share, and the wall time under
+    the profiler (which slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 2048))).to(engine.device)
+    engine_prefill(engine, toks)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        engine_prefill(engine, toks)
+        torch.cuda.synchronize()
+        pre_wall = (time.perf_counter() - t0) * 1e3
+    for _ in range(engine.max_batch):
+        engine.submit(serve.Request(rng.integers(0, cfg.vocab_size, 1024).tolist(),
+                                    max_new_tokens=6))
+    engine.step()  # admits all 8, then one decode step
+    engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof_dec:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        dec_wall = (time.perf_counter() - t0) * 1e3
+    engine.run()
+    return {"phase": "profile_hybrid",
+            "prefill_2048": {"profiled_wall_ms": pre_wall, **device_summary(prof)},
+            "decode_step_8_slots": {"profiled_wall_ms": dec_wall, **device_summary(prof_dec)}}
+
+
+def parity(T, L, M, refs, cfg, params, dev, seed, *, phase, bar):
+    """A 1000-token prefill and 8 decode steps through the kernels against the
+    same through their plain versions; logits compared at `bar`. Also the
+    prefill's hidden states after every layer: their max abs gap and size."""
+    attention_ref, decode_ref, scan_ref = refs
     rng = np.random.default_rng(seed + 1)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1000))).to(dev)
     steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 1, 1))).to(dev)
+    layer_apply = T.layer_apply
 
     def run():
-        logits, caches = T.prefill(params, {"tokens": prompt}, cfg4, total_len=1008)
+        hidden = []
+
+        def spy(lp, x, cfg_, i, rope, cache=None, slots=None):
+            x = layer_apply(lp, x, cfg_, i, rope, cache, slots)
+            if slots is None:  # prefill
+                hidden.append(x)
+            return x
+
+        with mock.patch.object(T, "layer_apply", spy):
+            logits, caches = T.prefill(params, {"tokens": prompt}, cfg, total_len=1008)
         out = [logits.float()]
         for i in range(8):
             t = torch.tensor([1000 + i], dtype=torch.int32, device=dev)
-            logits, caches = T.decode_step(params, caches, steps[i], t, cfg4)
+            logits, caches = T.decode_step(params, caches, steps[i], t, cfg)
             out.append(logits.float())
-        return torch.stack(out)
+        return torch.stack(out), hidden
 
-    kernel = run()
+    kernel, k_hidden = run()
     with mock.patch.object(L, "flash_attention", lambda q, k, v, causal, window: attention_ref(
             q, k, v, causal=causal, window=window).to(q.dtype)), \
          mock.patch.object(L, "flash_decode", lambda q, kc, vc, cl: decode_ref(
-            q, kc, vc, cl).to(q.dtype)):
-        plain = run()
+            q, kc, vc, cl).to(q.dtype)), \
+         mock.patch.object(M, "selective_scan", scan_ref):
+        plain, p_hidden = run()
     if not torch.isfinite(kernel).all():
-        raise RuntimeError("non-finite logits through the kernels")
+        raise RuntimeError(f"{phase}: non-finite logits through the kernels")
     err = (kernel - plain).abs().max().item()
     agree = (kernel.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    res = {"phase": "parity", "n_layers": 4, "prefill_len": 1000, "decode_steps": 8,
-           "max_abs_err": err, "bar": PARITY_BAR, "logit_absmax": plain.abs().max().item(),
-           "argmax_agree": agree}
-    if err > PARITY_BAR:
-        raise RuntimeError(f"path parity: max abs logit diff {err} > {PARITY_BAR}")
+    res = {"phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers, "prefill_len": 1000,
+           "decode_steps": 8, "max_abs_err": err, "bar": bar,
+           "logit_absmax": plain.abs().max().item(), "argmax_agree": agree,
+           "prefill_logit_err": (kernel[0] - plain[0]).abs().max().item(),
+           "layer_kinds": [T.mixer_kind(cfg, i % T.period(cfg)) for i in range(cfg.n_layers)],
+           "layer_hidden_err": [(a.float() - b.float()).abs().max().item()
+                                for a, b in zip(k_hidden, p_hidden)],
+           "layer_hidden_absmax": [b.float().abs().max().item() for b in p_hidden]}
+    if err > bar:
+        raise RuntimeError(f"{phase}: max abs logit diff {err} > {bar}")
     return res
+
+
+def path_parity(T, L, M, refs, cfg, dev, seed):
+    """yi-9b at full width and 4 layers, its own weights."""
+    cfg4 = cfg.replace(n_layers=4)
+    params = T.model_init(torch.Generator(device=dev).manual_seed(seed + 1), cfg4, dev)
+    return parity(T, L, M, refs, cfg4, params, dev, seed, phase="parity", bar=PARITY_BAR)
+
+
+# ------------------------------------------------------------ selective scan
+
+
+def scan_work(B, S, ed, n, with_h0):
+    """Bytes, exponentials and f32 operations of one scan: x, dt, Bc, Cc and A
+    (and h0) read once, y and h written once; per state and step one exp and
+    6 operations (dt*A, dA*h, dx*B, +, h*C, +), per channel and step dt*x."""
+    elems = B * S * ed
+    nbytes = 4 * (3 * elems + 2 * B * S * n + ed * n + (2 if with_h0 else 1) * B * ed * n)
+    return nbytes, elems * n, 6 * elems * n + elems
+
+
+def scan_bound(B, S, ed, n, with_h0):
+    nbytes, exps, flops = scan_work(B, S, ed, n, with_h0)
+    t_ops = max(exps / PEAK_EXP_S, flops / PEAK_FLOPS[torch.float32])
+    t_bytes = nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_scan(ss_ops, scan_ref, dev, flush, *, B, S, ed, n, seed, chain_at=0):
+    """The kernel against its plain version on inputs drawn as the model
+    draws them: dt a softplus around log(expm1(0.01)) (the dt_bias), A =
+    -[1..n] on every channel. With chain_at, two calls carry h0 across."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=dev)  # noqa: E731
+    x, Bc, Cc = r(B, S, ed), r(B, S, n), r(B, S, n)
+    dt = F.softplus(r(B, S, ed) + float(np.log(np.expm1(0.01))))
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(ed, 1)
+    cut = chain_at or S
+    parts = [(0, cut)] + ([(cut, S)] if chain_at else [])
+    pieces = [tuple(a[:, i:j].contiguous() for a in (x, dt, Bc, Cc)) for i, j in parts]
+
+    def kernel_run():
+        ys, h = [], None
+        for xp, dp, bp, cp in pieces:
+            y, h = ss_ops.selective_scan(xp, dp, A, bp, cp, h)
+            ys.append(y)
+        return torch.cat(ys, 1), h
+
+    y, h = kernel_run()
+    torch.cuda.synchronize()
+    yr, hr = scan_ref(x, dt, A, Bc, Cc)
+    err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
+    big = B * S * ed > 1 << 22
+    ms = time_ms(kernel_run, 10 if big else 30, flush)
+    plain = time_ms(lambda: scan_ref(x, dt, A, Bc, Cc), 2 if big else 5, flush)
+    bounds = [scan_bound(B, j - i, ed, n, k > 0) for k, (i, j) in enumerate(parts)]
+    b_ms = sum(b for b, _ in bounds)
+    return {"kernel": "selective_scan", "dtype": "float32", "B": B, "S": S, "ed": ed, "n": n,
+            "chained_at": chain_at or None, "max_abs_err": err, "bar": SCAN_BAR, "ms": ms,
+            "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": bounds[0][1], "y_absmax": yr.abs().max().item()}
 
 
 # ------------------------------------------------- guided update kernels
 
 
-def reset_launches(fa_ops, fd_ops, gu_ops) -> None:
+def reset_launches(fa_ops, fd_ops, ss_ops, gu_ops) -> None:
     fa_ops.launches = 0
     fd_ops.launches = 0
+    ss_ops.launches = 0
     for name in gu_ops.launches:
         gu_ops.launches[name] = 0
 
 
-def read_launches(fa_ops, fd_ops, gu_ops) -> dict:
+def read_launches(fa_ops, fd_ops, ss_ops, gu_ops) -> dict:
     return {"flash_attention": fa_ops.launches, "flash_decode": fd_ops.launches,
-            **gu_ops.launches}
+            "selective_scan": ss_ops.launches, **gu_ops.launches}
 
 
 def guided_call(gu_ops, gu_ref, name, w, g, ws, accs, plain):
@@ -565,8 +745,8 @@ def train_main_path(data, mods, counters, n_seeds):
     for name in GUIDED:
         if launches[name] <= 0:
             raise RuntimeError(f"{name} never launched on the training path: {launches}")
-    if launches["flash_attention"] or launches["flash_decode"]:
-        raise RuntimeError(f"attention kernels launched on the training path: {launches}")
+    if any(launches[k] for k in ("flash_attention", "flash_decode", "selective_scan")):
+        raise RuntimeError(f"model kernels launched on the training path: {launches}")
     results = []
     for name, spec, rep, wall, used in runs:
         T = rep.n_steps
@@ -643,7 +823,10 @@ def main(argv=None) -> int:
     from repro_torch.engine import strategies
     from repro_torch.kernels.guided_update import ops as gu_ops
     from repro_torch.kernels.guided_update import ref as gu_ref
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
     from repro_torch.models import layers as L
+    from repro_torch.models import mamba as M
     from repro_torch.models import transformer as T
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -660,25 +843,35 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": os.path.relpath(path, HERE),
           "sources": [os.path.relpath(s, HERE) for s in kernels.sources()]})
 
+    cfg = get_config("yi-9b")
+    # the hybrid path: jamba at full width, one period (8 layers), no experts
+    hcfg = get_config("jamba_1_5_large_398b").replace(n_layers=8, moe=None)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
     checks = []
+    yi_heads = dict(H=cfg.n_heads, K=cfg.n_kv_heads)
     for dtype in (torch.bfloat16, torch.float32):
         for S in (1000, 4096):
             for window in (0, 1024):
-                checks.append(check_attention(fa_ops, attention_ref, dev, flush, S=S,
+                checks.append(check_attention(fa_ops, attention_ref, dev, flush, **yi_heads, S=S,
                                               window=window, dtype=dtype, seed=S + window))
         for S in (1280, 8192):
             lens = [S, 3 * S + 17, 1, S // 2 + 3, 700, S - 1, 2 * S, 129]  # full, wrapped, ragged
-            checks.append(check_decode(fd_ops, decode_ref, dev, flush, S=S, lens=lens,
-                                       dtype=dtype, seed=S))
-    # the shapes the main path gives each kernel: its longest prefill (2048
-    # tokens, yi-9b's 8192 window) and a decode step over its 2112-slot pool
-    main_attn = check_attention(fa_ops, attention_ref, dev, flush, S=2048, window=8192,
-                                dtype=torch.bfloat16, seed=1)
-    main_dec = check_decode(fd_ops, decode_ref, dev, flush, S=2112,
-                            lens=[2100, 1500, 900, 180, 2048, 1337, 640, 1030],
-                            dtype=torch.bfloat16, seed=2)
-    checks += [dict(main_attn, main_path_shape=True), dict(main_dec, main_path_shape=True)]
+            checks.append(check_decode(fd_ops, decode_ref, dev, flush, **yi_heads, S=S,
+                                       lens=lens, dtype=dtype, seed=S))
+    # the shapes each serve path gives the attention kernels: its longest
+    # prefill (2048 tokens, under yi-9b's 8192 window; jamba has none) and a
+    # decode step of 8 ragged rows over its 2112-slot pool, at its heads
+    dec_lens = [2100, 1500, 900, 180, 2048, 1337, 640, 1030]
+    main_attn, main_dec = {}, {}
+    for phase, c, seed in (("serve", cfg, 1), ("serve_hybrid", hcfg, 3)):
+        heads = dict(H=c.n_heads, K=c.n_kv_heads)
+        main_attn[phase] = dict(check_attention(
+            fa_ops, attention_ref, dev, flush, **heads, S=2048, window=c.sliding_window,
+            dtype=torch.bfloat16, seed=seed), main_path_shape=phase)
+        main_dec[phase] = dict(check_decode(
+            fd_ops, decode_ref, dev, flush, **heads, S=2112, lens=dec_lens,
+            dtype=torch.bfloat16, seed=seed + 1), main_path_shape=phase)
+        checks += [main_attn[phase], main_dec[phase]]
     for c in checks:
         emit({"phase": "kernels", **c})
     bad = [c for c in checks if not c["max_abs_err"] <= c["bar"]]
@@ -701,39 +894,76 @@ def main(argv=None) -> int:
                 if not c["within_bar"]:
                     raise RuntimeError(f"guided kernel disagrees with its plain version: {c}")
 
-    cfg = get_config("yi-9b")
-    gu_ops.launches.update(dict.fromkeys(gu_ops.launches, 0))
-    served = serve_main_path(T, serve, fa_ops, fd_ops, cfg, dev, args.seed)
-    if any(gu_ops.launches.values()):
-        raise RuntimeError(f"guided kernels launched on the serve path: {gu_ops.launches}")
-    emit(served)
-    emit(path_parity(T, L, (attention_ref, decode_ref), cfg, dev, args.seed))
+    # the selective scan: the hybrid path's longest prefill (2048 tokens of
+    # jamba's ed = 16384, n = 16), odd lengths, and h0 chained at B = 2
+    main_scan = None
+    for i, (B, S, chain_at) in enumerate(((1, 2048, 0), (1, 1, 0), (1, 17, 0), (1, 1000, 0),
+                                          (2, 777, 400))):
+        c = check_scan(ss_ops, selective_scan_ref, dev, flush, B=B, S=S, ed=16384, n=16,
+                       seed=100 + i, chain_at=chain_at)
+        if S == 2048:
+            c["main_path_shape"] = True
+            main_scan = c
+        emit({"phase": "scan", **c})
+        if not c["max_abs_err"] <= c["bar"]:
+            raise RuntimeError(f"selective_scan disagrees with its plain version: {c}")
+
+    counters = (lambda: reset_launches(fa_ops, fd_ops, ss_ops, gu_ops),
+                lambda: read_launches(fa_ops, fd_ops, ss_ops, gu_ops))
+    refs = (attention_ref, decode_ref, selective_scan_ref)
+    params, init_s = init_model(T, cfg, dev, args.seed)
+    served = serve_main_path(T, serve, counters, cfg, params, args.seed, phase="serve",
+                             profile=profile_decode)
+    del params
+    torch.cuda.empty_cache()
+    emit(dict(served, init_s=init_s))
+    emit(path_parity(T, L, M, refs, cfg, dev, args.seed))
+    torch.cuda.empty_cache()
 
     X, y, k = load_dataset("phishing", seed=0)
     Xtr, ytr, Xte, yte = train_test_split(X, y, seed=0)
     data = (Xtr, ytr, k, Xte, yte)
     t0 = time.perf_counter()
     _, train_launches = train_main_path(
-        data, (Trainer, train_ps, delaysim, strategies),
-        (lambda: reset_launches(fa_ops, fd_ops, gu_ops),
-         lambda: read_launches(fa_ops, fd_ops, gu_ops), ExperimentSpec), n_seeds)
+        data, (Trainer, train_ps, delaysim, strategies), (*counters, ExperimentSpec), n_seeds)
     emit({"phase": "train_total", "seconds": time.perf_counter() - t0,
           "launches": train_launches})
     emit(profile_train(delaysim, strategies, ExperimentSpec, data, n_seeds))
 
+    params, init_s = init_model(T, hcfg, dev, args.seed)
+    hybrid = serve_main_path(T, serve, counters, hcfg, params, args.seed,
+                             phase="serve_hybrid", profile=profile_hybrid)
+    emit(dict(hybrid, init_s=init_s))
+    emit(parity(T, L, M, refs, hcfg, params, dev, args.seed, phase="parity_hybrid",
+                bar=HYBRID_PARITY_BAR))
+    del params
+    torch.cuda.empty_cache()
+
+    # one entry per kernel and serve path: that path's launches beside the
+    # numbers measured at the shape that path gives the kernel
     entries = []
-    for name, src, replaces, c in (
+    for name, src, replaces, by_path in (
             ("flash_attention", ATTN_SRC, "src/repro/kernels/flash_attention/kernel.py:27",
              main_attn),
-            ("flash_decode", DECODE_SRC, "src/repro/kernels/flash_decode/kernel.py:22", main_dec)):
-        entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": served["launches"][name], "max_abs_err": c["max_abs_err"],
-                        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                        "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+            ("flash_decode", DECODE_SRC, "src/repro/kernels/flash_decode/kernel.py:22", main_dec),
+            ("selective_scan", SCAN_SRC, "src/repro/kernels/selective_scan/kernel.py:21",
+             {"serve_hybrid": main_scan})):
+        for run in (served, hybrid):
+            if run["phase"] not in by_path:
+                continue
+            c = by_path[run["phase"]]
+            shape = {k: c[k] for k in ("B", "S", "H", "K", "ed", "n") if k in c}
+            entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                            "path": run["phase"], "shape": shape,
+                            "launches": run["launches"].get(name, 0),
+                            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
     for name, (replaces, _) in GUIDED.items():
         c = main_guided[name]
         entries.append({"name": name, "route": "cuda", "source": GUIDED_SRC,
-                        "replaces": replaces, "launches": train_launches[name],
+                        "replaces": replaces, "path": "train", "shape": c["shape"],
+                        "launches": train_launches[name],
                         "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
                         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                         "library_ms": None})

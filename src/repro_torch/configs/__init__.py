@@ -21,8 +21,8 @@ ARCH_IDS = [
     "paper_logreg",
 ]
 
-#: the archs this port serves so far
-PORTED = ("yi_9b",)
+#: the archs this port serves so far (jamba without its MoE layers)
+PORTED = ("yi_9b", "jamba_1_5_large_398b")
 
 
 def get_config(arch: str) -> ModelConfig:

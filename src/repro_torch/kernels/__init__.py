@@ -15,6 +15,7 @@ loaded at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -130,6 +131,18 @@ def dtype_code(dtype: torch.dtype, allowed=(torch.float32, torch.bfloat16)) -> i
         names = ", ".join(str(d).replace("torch.", "") for d in allowed)
         raise TypeError(f"kernel takes {names}, got {dtype}")
     return _DTYPE_CODES[dtype]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of CUDA `device`, read once per device (grids are sized
+    per card, so a host with mixed cards sizes each launch for its own)."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -7,7 +7,6 @@ its combine pass are one launch of the wrapper), and only those.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
@@ -23,11 +22,6 @@ TILE = 64                  # cache slots per loop step of the split kernel
 CTAS_PER_SM = 4            # split the cache until B*K*n_split covers the SMs this often
 
 launches = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def n_splits(B: int, K: int, S: int, sms: int) -> int:
@@ -69,7 +63,7 @@ def flash_decode(q, k_cache, v_cache, cache_len):
     if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
         raise ValueError("flash_decode kernel needs 16-byte aligned caches")
     code = kernels.dtype_code(q.dtype)
-    ns = n_splits(B, K, S, _sm_count(q.device.index or 0))
+    ns = n_splits(B, K, S, kernels.sm_count(q.device))
     part_num = torch.empty((B, H, ns, dh), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((B, H, ns, 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)

@@ -134,31 +134,19 @@ __global__ void adam_kernel(const T* __restrict__ w, const T* __restrict__ g,
   }
 }
 
-int grid_for(long long n) {
-  static int cap = 0;  // SMs * BLOCKS_PER_SM of the current device, read once
-  if (cap == 0) {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 0;
-    cap = sms * BLOCKS_PER_SM;
-  }
+// blocks for n elements on a card of `sms` SMs (the caller reads the count
+// of the tensors' own device, so mixed cards each get their own grid)
+int grid_for(long long n, int sms) {
+  const long long cap = (long long)sms * BLOCKS_PER_SM;
   const long long want = (n + NT - 1) / NT;
   return (int)(want < cap ? want : cap);
 }
 
-// the error that kept grid_for from reading the device, never 0
-int no_grid() {
-  const cudaError_t e = cudaGetLastError();
-  return e != cudaSuccess ? (int)e : (int)cudaErrorUnknown;
-}
-
 template <typename T>
 int launch_sgd(const void* w, const void* g, const void* ws, void* out, long long n, double lr,
-               double lam, cudaStream_t st) {
+               double lam, int sms, cudaStream_t st) {
   using C = typename Compute<T>::type;
-  const int grid = grid_for(n);
-  if (grid == 0) return no_grid();
+  const int grid = grid_for(n, sms);
   sgd_kernel<T><<<grid, NT, 0, st>>>(static_cast<const T*>(w), static_cast<const T*>(g),
                                      static_cast<const T*>(ws), static_cast<T*>(out), n, C(lr),
                                      C(lam));
@@ -168,10 +156,9 @@ int launch_sgd(const void* w, const void* g, const void* ws, void* out, long lon
 template <typename T>
 int launch_momentum(const void* w, const void* g, const void* ws, const void* m, void* out,
                     void* m_out, long long n, double lr, double lam, double beta, int nesterov,
-                    cudaStream_t st) {
+                    int sms, cudaStream_t st) {
   using C = typename Compute<T>::type;
-  const int grid = grid_for(n);
-  if (grid == 0) return no_grid();
+  const int grid = grid_for(n, sms);
   auto args = [&](auto kernel) {
     kernel<<<grid, NT, 0, st>>>(static_cast<const T*>(w), static_cast<const T*>(g),
                                 static_cast<const T*>(ws), static_cast<const C*>(m),
@@ -188,10 +175,9 @@ int launch_momentum(const void* w, const void* g, const void* ws, const void* m,
 template <typename T>
 int launch_rmsprop(const void* w, const void* g, const void* ws, const void* r, void* out,
                    void* r_out, long long n, double lr, double lam, double beta, double eps,
-                   cudaStream_t st) {
+                   int sms, cudaStream_t st) {
   using C = typename Compute<T>::type;
-  const int grid = grid_for(n);
-  if (grid == 0) return no_grid();
+  const int grid = grid_for(n, sms);
   rmsprop_kernel<T><<<grid, NT, 0, st>>>(
       static_cast<const T*>(w), static_cast<const T*>(g), static_cast<const T*>(ws),
       static_cast<const C*>(r), static_cast<T*>(out), static_cast<C*>(r_out), n, C(lr), C(lam),
@@ -203,10 +189,9 @@ template <typename T>
 int launch_adam(const void* w, const void* g, const void* ws, const void* m, const void* v,
                 void* out, void* m_out, void* v_out, long long n, double lr, double lam,
                 double b1, double omb1, double b2, double omb2, double bc1, double bc2,
-                double eps, cudaStream_t st) {
+                double eps, int sms, cudaStream_t st) {
   using C = typename Compute<T>::type;
-  const int grid = grid_for(n);
-  if (grid == 0) return no_grid();
+  const int grid = grid_for(n, sms);
   adam_kernel<T><<<grid, NT, 0, st>>>(
       static_cast<const T*>(w), static_cast<const T*>(g), static_cast<const T*>(ws),
       static_cast<const C*>(m), static_cast<const C*>(v), static_cast<T*>(out),
@@ -220,45 +205,51 @@ int launch_adam(const void* w, const void* g, const void* ws, const void* m, con
 // Plain C entry points, bound with ctypes. dtype: 0 = float32, 1 = bfloat16,
 // 2 = float64 (of w, g and w_stale; accumulators are at the compute type).
 // Scalars come as doubles holding values already rounded to the compute type.
+// sms: the SM count of the tensors' device, which sizes the grid.
 // Return 0 or the CUDA error of the launch.
 
 extern "C" int guided_sgd_update(const void* w, const void* g, const void* ws, void* out,
-                                 long long n, double lr, double lam, int dtype, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+                                 long long n, double lr, double lam, int dtype, int sms,
+                                 void* stream) {
+  if (n < 1 || sms < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_sgd<float>(w, g, ws, out, n, lr, lam, st);
-  if (dtype == 1) return launch_sgd<__nv_bfloat16>(w, g, ws, out, n, lr, lam, st);
-  if (dtype == 2) return launch_sgd<double>(w, g, ws, out, n, lr, lam, st);
+  if (dtype == 0) return launch_sgd<float>(w, g, ws, out, n, lr, lam, sms, st);
+  if (dtype == 1) return launch_sgd<__nv_bfloat16>(w, g, ws, out, n, lr, lam, sms, st);
+  if (dtype == 2) return launch_sgd<double>(w, g, ws, out, n, lr, lam, sms, st);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int guided_momentum_update(const void* w, const void* g, const void* ws,
                                       const void* m, void* out, void* m_out, long long n,
                                       double lr, double lam, double beta, int nesterov,
-                                      int dtype, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+                                      int dtype, int sms, void* stream) {
+  if (n < 1 || sms < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_momentum<float>(w, g, ws, m, out, m_out, n, lr, lam, beta, nesterov, st);
+    return launch_momentum<float>(w, g, ws, m, out, m_out, n, lr, lam, beta, nesterov, sms,
+                                  st);
   if (dtype == 1)
     return launch_momentum<__nv_bfloat16>(w, g, ws, m, out, m_out, n, lr, lam, beta, nesterov,
-                                          st);
+                                          sms, st);
   if (dtype == 2)
-    return launch_momentum<double>(w, g, ws, m, out, m_out, n, lr, lam, beta, nesterov, st);
+    return launch_momentum<double>(w, g, ws, m, out, m_out, n, lr, lam, beta, nesterov, sms,
+                                   st);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int guided_rmsprop_update(const void* w, const void* g, const void* ws,
                                      const void* r, void* out, void* r_out, long long n,
                                      double lr, double lam, double beta, double eps, int dtype,
-                                     void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+                                     int sms, void* stream) {
+  if (n < 1 || sms < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_rmsprop<float>(w, g, ws, r, out, r_out, n, lr, lam, beta, eps, st);
+  if (dtype == 0)
+    return launch_rmsprop<float>(w, g, ws, r, out, r_out, n, lr, lam, beta, eps, sms, st);
   if (dtype == 1)
-    return launch_rmsprop<__nv_bfloat16>(w, g, ws, r, out, r_out, n, lr, lam, beta, eps, st);
+    return launch_rmsprop<__nv_bfloat16>(w, g, ws, r, out, r_out, n, lr, lam, beta, eps, sms,
+                                         st);
   if (dtype == 2)
-    return launch_rmsprop<double>(w, g, ws, r, out, r_out, n, lr, lam, beta, eps, st);
+    return launch_rmsprop<double>(w, g, ws, r, out, r_out, n, lr, lam, beta, eps, sms, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -266,17 +257,17 @@ extern "C" int guided_adam_update(const void* w, const void* g, const void* ws, 
                                   const void* v, void* out, void* m_out, void* v_out,
                                   long long n, double lr, double lam, double b1, double omb1,
                                   double b2, double omb2, double bc1, double bc2, double eps,
-                                  int dtype, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
+                                  int dtype, int sms, void* stream) {
+  if (n < 1 || sms < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_adam<float>(w, g, ws, m, v, out, m_out, v_out, n, lr, lam, b1, omb1, b2, omb2,
-                              bc1, bc2, eps, st);
+                              bc1, bc2, eps, sms, st);
   if (dtype == 1)
     return launch_adam<__nv_bfloat16>(w, g, ws, m, v, out, m_out, v_out, n, lr, lam, b1, omb1,
-                                      b2, omb2, bc1, bc2, eps, st);
+                                      b2, omb2, bc1, bc2, eps, sms, st);
   if (dtype == 2)
     return launch_adam<double>(w, g, ws, m, v, out, m_out, v_out, n, lr, lam, b1, omb1, b2,
-                               omb2, bc1, bc2, eps, st);
+                               omb2, bc1, bc2, eps, sms, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -30,11 +30,11 @@ FUSED_ACC_ARITY = {"sgd": 0, "momentum": 1, "rmsprop": 1, "adam": 2}
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 _P, _I, _N, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
-_ARGTYPES = {
-    "guided_sgd_update": [_P] * 4 + [_N, _D, _D, _I, _P],
-    "guided_momentum_update": [_P] * 6 + [_N, _D, _D, _D, _I, _I, _P],
-    "guided_rmsprop_update": [_P] * 6 + [_N, _D, _D, _D, _D, _I, _P],
-    "guided_adam_update": [_P] * 8 + [_N] + [_D] * 9 + [_I, _P],
+_ARGTYPES = {  # ..., dtype code, SM count, stream
+    "guided_sgd_update": [_P] * 4 + [_N, _D, _D, _I, _I, _P],
+    "guided_momentum_update": [_P] * 6 + [_N, _D, _D, _D, _I, _I, _I, _P],
+    "guided_rmsprop_update": [_P] * 6 + [_N, _D, _D, _D, _D, _I, _I, _P],
+    "guided_adam_update": [_P] * 8 + [_N] + [_D] * 9 + [_I, _I, _P],
 }
 
 launches = dict.fromkeys(_ARGTYPES, 0)
@@ -72,7 +72,8 @@ def _launch(name, tensors, scalars, dtype, device, *flags):
     with torch.cuda.device(device):
         fn = kernels.kernel_fn(name, _ARGTYPES[name])
         rc = fn(*(t.data_ptr() for t in tensors), tensors[0].numel(), *scalars, *flags,
-                kernels.dtype_code(dtype, _DTYPES), torch.cuda.current_stream().cuda_stream)
+                kernels.dtype_code(dtype, _DTYPES), kernels.sm_count(device),
+                torch.cuda.current_stream().cuda_stream)
     kernels.check_launch(name, rc)
     launches[name] += 1
 

@@ -3,7 +3,8 @@
 `params_from_jax` takes the reference's value tree as numpy arrays
 (`split_params(model_init(...))[0]` mapped through `np.asarray`) and returns
 the port's params: the same nested keys, shapes and dtypes (stacked leading
-layer dim, gated `wi` as (d, 2, f)), as tensors on `device`.
+super-block dim, gated `wi` as (d, 2, f), a hybrid's f32 Mamba leaves
+`A_log`, `dt_bias` and `D` kept f32), as tensors on `device`.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
 
 def params_from_jax(tree, cfg, device="cuda") -> dict:
     """Numpy value tree of the reference -> port params on `device`. Raises
-    if a key or shape differs from what the port's model_init builds."""
+    if a key, shape or dtype differs from what the port's model_init builds."""
     want = T.model_init(None, cfg, device="meta")
 
     def walk(src, ref, path):
@@ -34,6 +35,9 @@ def params_from_jax(tree, cfg, device="cuda") -> dict:
         arr = np.asarray(src)
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"{path}: shape {arr.shape} != {tuple(ref.shape)}")
-        return _to_tensor(arr, device)
+        out = _to_tensor(arr, device)
+        if out.dtype != ref.dtype:
+            raise ValueError(f"{path}: dtype {out.dtype} != {ref.dtype}")
+        return out
 
     return walk(tree, want, "")

@@ -1,4 +1,4 @@
-"""Model assembly (port of `repro.models.transformer`, dense archs).
+"""Model assembly (port of `repro.models.transformer`: dense and hybrid archs).
 
 API:
   model_init(gen, cfg, device)                        -> params (nested dict)
@@ -6,18 +6,22 @@ API:
   prefill(params, batch, cfg, total_len, prompt_lens, caches) -> (last logits, caches)
   decode_step(params, caches, tokens, t, cfg)         -> (logits, caches)
 
-Layout is the reference's: layer parameters and caches are stacked on a
-leading layer dim under `blocks["l0"]` / `caches["l0"]` (dense archs have a
-period of one layer), and the stack runs as a Python loop over that dim in
-place of `lax.scan`.
+Layout is the reference's: a model is `n_super` super-blocks of `period`
+layers (dense: 1 layer; jamba's hybrid: 8, attention at l4 and Mamba at the
+others). Layer parameters and caches live under `blocks["l{i}"]` /
+`caches["l{i}"]`, stacked on a leading super-block dim, and the stack runs
+as a Python loop over that dim in place of `lax.scan`. An attention layer's
+cache is {k, v}, a Mamba layer's {conv, ssm}.
 
 Caches are updated IN PLACE: `prefill` writes the caches it is given (or
-fresh ones), `decode_step` writes slot `t mod S_c` of every row, and both
-return the same tensors. Pass views of a larger pool (e.g. one batch row)
-to prefill straight into it.
+fresh ones) as the reference writes fresh caches: attention rows are zeroed
+and Mamba layers start from zero states, whatever the given caches held.
+`decode_step` writes slot `t mod S_c` of every attention row and the Mamba
+states of every row; both return the same tensors. Pass views of a larger
+pool (e.g. one batch row) to prefill straight into it.
 
-Not yet ported: MoE, Mamba (ssm/hybrid), xLSTM, audio/VLM frontends and the
-int8 KV cache; those raise NotImplementedError.
+Not yet ported: MoE, xLSTM, audio/VLM frontends and the int8 KV cache; those
+raise NotImplementedError (jamba is served with `moe=None`).
 """
 from __future__ import annotations
 
@@ -26,14 +30,17 @@ from typing import Optional
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models.module import stacked, tree_map
 
 
 def check_ported(cfg) -> None:
     """Raise for any part of `cfg` whose path this port does not have yet."""
     missing = []
-    if cfg.arch_type != "dense" or cfg.moe is not None or cfg.ssm is not None:
+    if cfg.arch_type not in ("dense", "hybrid"):
         missing.append(f"arch_type={cfg.arch_type!r}")
+    if cfg.moe is not None:
+        missing.append("MoE ffn (moe)")
     if cfg.xlstm is not None:
         missing.append("xlstm")
     if cfg.audio_frontend or cfg.n_patches:
@@ -45,14 +52,41 @@ def check_ported(cfg) -> None:
                                   + ", ".join(missing))
 
 
+# ----------------------------------------------------------- block structure
+
+
+def period(cfg) -> int:
+    return cfg.attn_every if cfg.arch_type == "hybrid" else 1
+
+
+def n_super(cfg) -> int:
+    p = period(cfg)
+    if cfg.n_layers % p:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a multiple of "
+                         f"the period {p}")
+    return cfg.n_layers // p
+
+
+def mixer_kind(cfg, i: int) -> str:
+    """Kind of the i-th layer within a super-block: "attn" or "mamba"."""
+    if cfg.arch_type == "hybrid":
+        return "attn" if cfg.layer_is_attn(i) else "mamba"
+    return "attn"
+
+
 def block_init(gen, cfg, device) -> dict:
-    """One layer: {l0: {norm1, mixer, norm2, ffn}} (the reference's super-block)."""
-    return {"l0": {
-        "norm1": L.rmsnorm_init(cfg.d_model, device),
-        "mixer": L.attn_init(gen, cfg, device),
-        "norm2": L.rmsnorm_init(cfg.d_model, device),
-        "ffn": L.ffn_init(gen, cfg, device),
-    }}
+    """One super-block: {l0..l{P-1}}, each {norm1, mixer, norm2, ffn}."""
+    out = {}
+    for i in range(period(cfg)):
+        mixer = (L.attn_init(gen, cfg, device) if mixer_kind(cfg, i) == "attn"
+                 else M.mamba_init(gen, cfg, device))
+        out[f"l{i}"] = {
+            "norm1": L.rmsnorm_init(cfg.d_model, device),
+            "mixer": mixer,
+            "norm2": L.rmsnorm_init(cfg.d_model, device),
+            "ffn": L.ffn_init(gen, cfg, device),
+        }
+    return out
 
 
 def model_init(gen: Optional[torch.Generator], cfg, device="cuda") -> dict:
@@ -66,7 +100,7 @@ def model_init(gen: Optional[torch.Generator], cfg, device="cuda") -> dict:
     return {
         "final_norm": L.rmsnorm_init(cfg.d_model, device),
         "embed": L.embed_init(gen, cfg, device),
-        "blocks": stacked(cfg.n_layers, lambda: block_init(gen, cfg, device)),
+        "blocks": stacked(n_super(cfg), lambda: block_init(gen, cfg, device)),
     }
 
 
@@ -79,25 +113,45 @@ def cache_len_for(cfg, total_len: int) -> int:
     return total_len
 
 
+def layer_cache_init(cfg, i: int, batch: int, s_c: int, device) -> dict:
+    """Zeroed cache of layer i: attention {k, v} (batch, S_c, K, dh) in the
+    compute dtype; Mamba {conv (batch, dc-1, ed) in the compute dtype, ssm
+    (batch, ed, n) f32}."""
+    if mixer_kind(cfg, i) == "attn":
+        shape = (batch, s_c, cfg.n_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+    conv, ssm = M.mamba_state_init(cfg, batch, cfg.dtype, device)
+    return {"conv": conv, "ssm": ssm}
+
+
 def init_caches(cfg, batch: int, total_len: int, device) -> dict:
-    """Zeroed native-dtype KV caches: {l0: {k, v}}, each (n_layers, batch, S_c, K, dh)."""
+    """Zeroed caches {l0..l{P-1}}, each leaf stacked on a leading n_super dim."""
     check_ported(cfg)
     s_c = cache_len_for(cfg, total_len)
-    shape = (cfg.n_layers, batch, s_c, cfg.n_kv_heads, cfg.d_head)
-    return {"l0": {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                   "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}}
+    ns = n_super(cfg)
+    return {f"l{i}": tree_map(lambda c: c[None].repeat((ns,) + (1,) * c.ndim),
+                              layer_cache_init(cfg, i, batch, s_c, device))
+            for i in range(period(cfg))}
+
+
+def _attn_cache_len(cfg, caches) -> int:
+    """Ring size S_c, read from the first attention layer's cache."""
+    for i in range(period(cfg)):
+        if mixer_kind(cfg, i) == "attn":
+            return caches[f"l{i}"]["k"].shape[2]
+    raise ValueError(f"{cfg.name} has no attention layer")
 
 
 # ------------------------------------------------------------- block apply
 
 
-def layer_apply(lp, x, cfg, rope, cache=None, slots=None):
-    """One dense layer. `rope` is this pass's (cos, sin) tables. `cache`
-    ({k, v} of this layer, (B, S_c, K, dh)) is written in place: at decode
-    (`slots` = (rows, ring slot, cache_len) of the step) slot t mod S_c of
-    each row; at prefill the last min(S, S_c) positions at slots
-    arange(S-s_eff, S) mod S_c, with the rest zeroed. Returns x."""
-    h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+def _attn_layer(lp, h, cfg, rope, cache, slots):
+    """The attention mixer at prefill (slots None) or decode. `cache` ({k, v}
+    of this layer, (B, S_c, K, dh)) is written in place: at decode (`slots`
+    = (rows, ring slot, cache_len) of the step) slot t mod S_c of each row;
+    at prefill the last min(S, S_c) positions at slots arange(S-s_eff, S)
+    mod S_c, with the rest zeroed."""
     if slots is not None:
         B, S, _ = h.shape
         rows, slot, clen = slots
@@ -105,42 +159,70 @@ def layer_apply(lp, x, cfg, rope, cache=None, slots=None):
         cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
         cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
         out = L.decode_attention(q, cache["k"], cache["v"], clen)
-        att = out.reshape(B, S, -1) @ lp["mixer"]["wo"]
+        return out.reshape(B, S, -1) @ lp["mixer"]["wo"]
+    att, (k, v) = L.attn_apply(lp["mixer"], h, cfg, rope=rope)
+    if cache is not None:
+        s_c = cache["k"].shape[1]
+        S = k.shape[1]
+        s_eff = min(S, s_c)  # window may truncate; cache may be larger
+        ring = torch.remainder(torch.arange(S - s_eff, S, device=h.device), s_c)
+        for name, new in (("k", k), ("v", v)):
+            cache[name].zero_()
+            cache[name][:, ring] = new[:, -s_eff:].to(cache[name].dtype)
+    return att
+
+
+def _mamba_layer(lp, h, cfg, cache, decode: bool):
+    """The Mamba mixer. Prefill starts from zero states (the reference
+    prefills into fresh caches), so a reused pool row never continues its
+    last request; decode continues the row's states. `cache` ({conv, ssm}
+    of this layer) is overwritten with the new states."""
+    if decode:
+        y, (conv, ssm) = M.mamba_decode(lp["mixer"], h, cfg, cache["conv"], cache["ssm"])
     else:
-        att, (k, v) = L.attn_apply(lp["mixer"], h, cfg, rope=rope)
-        if cache is not None:
-            s_c = cache["k"].shape[1]
-            S = k.shape[1]
-            s_eff = min(S, s_c)  # window may truncate; cache may be larger
-            ring = torch.remainder(torch.arange(S - s_eff, S, device=x.device), s_c)
-            for name, new in (("k", k), ("v", v)):
-                cache[name].zero_()
-                cache[name][:, ring] = new[:, -s_eff:].to(cache[name].dtype)
-    x = x + att
+        y, (conv, ssm) = M.mamba_apply(lp["mixer"], h, cfg)
+    if cache is not None:
+        cache["conv"].copy_(conv)
+        cache["ssm"].copy_(ssm)
+    return y
+
+
+def layer_apply(lp, x, cfg, i, rope, cache=None, slots=None):
+    """Layer i of a super-block. `rope` is this pass's (cos, sin) tables;
+    `slots` is None at prefill, the decode step's (rows, ring slot,
+    cache_len) at decode. Returns x."""
+    h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    if mixer_kind(cfg, i) == "attn":
+        x = x + _attn_layer(lp, h, cfg, rope, cache, slots)
+    else:
+        x = x + _mamba_layer(lp, h, cfg, cache, decode=slots is not None)
     h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
     return x + L.ffn_apply(lp["ffn"], h)
 
 
 def block_apply(bp, x, cfg, rope, caches=None, slots=None):
-    """One super-block: a dense arch's period is a single layer, "l0"."""
-    return layer_apply(bp["l0"], x, cfg, rope, None if caches is None else caches["l0"], slots)
+    """One super-block: its `period` layers in order."""
+    for i in range(period(cfg)):
+        x = layer_apply(bp[f"l{i}"], x, cfg, i, rope,
+                        None if caches is None else caches[f"l{i}"], slots)
+    return x
 
 
 def _stack_apply(params, x, cfg, positions, caches=None, t=None):
-    """The layer stack as a Python loop over the stacked leading dim. What
+    """The stack as a Python loop over the stacked super-block dim. What
     every layer shares (RoPE tables, the decode step's ring slots) is built
-    once, and the stacked leaves are split into per-layer views once."""
+    once, and the stacked leaves are split into per-block views once."""
     rope = L.rope_tables(positions, cfg.d_head, cfg.rope_theta)
     slots = None
     if t is not None:
-        s_c = caches["l0"]["k"].shape[2]
+        s_c = _attn_cache_len(cfg, caches)
         rows = torch.arange(x.shape[0], device=x.device)
         slots = (rows, torch.remainder(t, s_c).long(), (t + 1).to(torch.int32))
     blocks = tree_map(lambda a: a.unbind(0), params["blocks"])
-    layer_caches = None if caches is None else tree_map(lambda c: c.unbind(0), caches)
-    for i in range(cfg.n_layers):
-        bp = tree_map(lambda a, i=i: a[i], blocks)
-        cache = None if caches is None else tree_map(lambda c, i=i: c[i], layer_caches)
+    block_caches = None if caches is None else tree_map(lambda c: c.unbind(0), caches)
+    for j in range(n_super(cfg)):
+        bp = tree_map(lambda a, j=j: a[j], blocks)
+        cache = None if caches is None else tree_map(lambda c, j=j: c[j], block_caches)
         x = block_apply(bp, x, cfg, rope, cache, slots)
     return x
 

@@ -12,7 +12,9 @@ ONE persistent cache allocation (`T.init_caches(cfg, max_batch, max_len)`):
   admission's one host sync;
 * prompts are right-padded to a power-of-two bucket only where the arch
   makes padding exact (full causal attention); sliding-window archs such as
-  yi-9b prefill at exact prompt length.
+  yi-9b and recurrent ones such as jamba's hybrid prefill at exact prompt
+  length. An admission's prefill starts from fresh state (attention rows
+  zeroed, Mamba states from zero), never from the slot's last request.
 
 Left out in this port so far: warm start from a checkpoint, sharding over a
 mesh (the engine runs on one card) and VLM patch embeddings (a request with
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import transformer as T
+from repro_torch.models.module import tree_map
 from repro_torch.serve.sampling import SamplingParams, sample_tokens
 
 MIN_PREFILL_BUCKET = 8  # smallest padded prefill length (full-causal archs only)
@@ -114,8 +117,9 @@ def _host_buffer(shape, dtype, device: torch.device) -> torch.Tensor:
 
 
 def _pool_row(caches, slot: int):
-    """Views of batch row `slot` of every pool cache (n_layers, 1, S_c, K, dh)."""
-    return {"l0": {n: c[:, slot:slot + 1] for n, c in caches["l0"].items()}}
+    """Views of batch row `slot` of every layer's pool caches, e.g. attention
+    k/v (n_super, 1, S_c, K, dh) and Mamba conv/ssm (n_super, 1, ...)."""
+    return tree_map(lambda c: c[:, slot:slot + 1], caches)
 
 
 class ServeEngine:

@@ -30,7 +30,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                  "repro_torch.core.parameter_server", "repro_torch.core.guided",
                  "repro_torch.common.topologies", "repro_torch.data.uci_analogs",
                  "repro_torch.kernels.guided_update.ops",
-                 "repro_torch.kernels.guided_update.ref"):
+                 "repro_torch.kernels.guided_update.ref", "repro_torch.models.mamba",
+                 "repro_torch.kernels.selective_scan.ops",
+                 "repro_torch.kernels.selective_scan.ref",
+                 "repro_torch.configs.jamba_1_5_large_398b"):
         assert must in mods, must
     code = (
         "import importlib, sys\n"

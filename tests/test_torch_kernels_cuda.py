@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels on the card, against their plain versions:
-flash_attention, flash_decode and the four guided-update kernels, and a short
-scan-trainer fit on the card against the same fit on the CPU.
+flash_attention, flash_decode, the four guided-update kernels and the
+selective scan; a short scan-trainer fit on the card against the same fit on
+the CPU; and the reduced hybrid (jamba) stack through its kernels.
 
 The `cuda` fixture skips them without an NVIDIA GPU (the kernels have no
 CPU mode). This file imports no JAX, so it runs on a card machine without the
@@ -180,3 +181,106 @@ def test_scan_trainer_on_card_matches_cpu(cuda):
         h = np.stack([x[1] for x in rep.history])
         hc = np.stack([x[1] for x in cpu.history])
         assert np.abs(h - hc).max() <= 1e-9
+
+
+# ------------------------------------------------------------ selective scan
+
+SCAN_ATOL = 1e-4  # the reference's bar (tests/test_kernels.py)
+
+
+def _scan_inputs(cuda, B, S, ed, n, seed, model_like=False):
+    """Random draws, or (model_like) the model's: dt a softplus around
+    log(expm1(0.01)) and A = -[1..n] on every channel."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *s: torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    x, Bc, Cc, h0 = r(B, S, ed), r(B, S, n), r(B, S, n), r(B, ed, n)
+    if model_like:
+        dt = torch.nn.functional.softplus(r(B, S, ed) + float(np.log(np.expm1(0.01))))
+        A = -torch.arange(1, n + 1, device=cuda, dtype=torch.float32).repeat(ed, 1)
+    else:
+        dt = 0.1 * r(B, S, ed).abs()
+        A = -r(ed, n).abs()
+    return x, dt, A, Bc, Cc, h0
+
+
+@pytest.mark.parametrize("B,S,ed,n,model_like", [
+    (1, 1, 16384, 16, True), (1, 17, 1000, 16, False), (2, 1000, 4096, 16, True),
+    (2, 64, 128, 16, False), (1, 64, 64, 4, False), (3, 33, 200, 8, False),
+    (1, 9, 70, 13, False), (1, 5, 64, 12, False)])
+def test_selective_scan_kernel_on_card(cuda, B, S, ed, n, model_like):
+    from repro_torch.kernels.selective_scan import ops
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    x, dt, A, Bc, Cc, h0 = _scan_inputs(cuda, B, S, ed, n, seed=S + ed, model_like=model_like)
+    for h in (h0, None):
+        n0 = ops.launches
+        y, hf = ops.selective_scan(x, dt, A, Bc, Cc, h)
+        torch.cuda.synchronize()
+        assert ops.launches == n0 + 1
+        yr, hr = selective_scan_ref(x, dt, A, Bc, Cc, h)
+        assert (y - yr).abs().max().item() <= SCAN_ATOL
+        assert (hf - hr).abs().max().item() <= SCAN_ATOL
+
+
+def test_selective_scan_kernel_chains_h0(cuda):
+    from repro_torch.kernels.selective_scan import ops
+
+    x, dt, A, Bc, Cc, _ = _scan_inputs(cuda, 2, 777, 2048, 16, seed=3, model_like=True)
+    y, h = ops.selective_scan(x, dt, A, Bc, Cc)
+    y1, h1 = ops.selective_scan(x[:, :400].contiguous(), dt[:, :400].contiguous(), A,
+                                Bc[:, :400].contiguous(), Cc[:, :400].contiguous())
+    y2, h2 = ops.selective_scan(x[:, 400:].contiguous(), dt[:, 400:].contiguous(), A,
+                                Bc[:, 400:].contiguous(), Cc[:, 400:].contiguous(), h0=h1)
+    assert (torch.cat([y1, y2], 1) - y).abs().max().item() <= SCAN_ATOL
+    assert (h2 - h).abs().max().item() <= SCAN_ATOL
+
+
+def test_selective_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.selective_scan import ops
+
+    x, dt, A, Bc, Cc, h0 = _scan_inputs(cuda, 2, 8, 64, 16, seed=0)
+    for dtype in (torch.float16, torch.bfloat16, torch.float64):
+        with pytest.raises(TypeError, match="float32"):
+            ops.selective_scan(x.to(dtype), dt, A, Bc, Cc, h0)
+        with pytest.raises(TypeError, match="float32"):
+            ops.selective_scan(x, dt, A, Bc, Cc, h0.to(dtype))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.selective_scan(x.transpose(0, 1).contiguous().transpose(0, 1), dt, A, Bc, Cc)
+    with pytest.raises(ValueError, match="x, dt"):
+        ops.selective_scan(x, dt[:, :4], A, Bc, Cc)
+    with pytest.raises(ValueError, match="n <= 16"):
+        ops.selective_scan(x, dt, torch.zeros(64, 17, device=cuda), Bc.new_zeros(2, 8, 17),
+                           Cc.new_zeros(2, 8, 17))
+    with pytest.raises(ValueError, match="all be on cuda or all on cpu"):
+        ops.selective_scan(x, dt, A.cpu(), Bc, Cc)
+
+
+def test_hybrid_stack_on_card_matches_cpu(cuda):
+    """Reduced jamba (f32) on the card through its kernels against the same
+    weights on the CPU through the plain versions: prefill at an odd length,
+    then 4 decode steps; 7 scans and 1 flash_attention per prefill. Logits
+    (of size about 3) within 1e-4: f32 on both sides, only summation orders
+    differ (the CPU port is within 1e-5 of the JAX reference)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.module import tree_map
+
+    cfg = get_config("jamba_1_5_large_398b").replace(moe=None).reduced()
+    params = T.model_init(torch.Generator(device=cuda).manual_seed(0), cfg, cuda)
+    cpu = tree_map(lambda a: a.cpu(), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 37), generator=torch.Generator().manual_seed(1))
+    n0, a0 = ops.launches, fa_ops.launches
+    lg, cg = T.prefill(params, {"tokens": toks.to(cuda)}, cfg, total_len=48)
+    assert (ops.launches - n0, fa_ops.launches - a0) == (7, 1)
+    lc, cc = T.prefill(cpu, {"tokens": toks}, cfg, total_len=48)
+    assert (lg.cpu() - lc).abs().max().item() <= 1e-4
+    t = torch.full((2,), 37, dtype=torch.int32)
+    for _ in range(4):
+        nxt = torch.argmax(lc, -1)[:, None]
+        n0 = ops.launches
+        lg, cg = T.decode_step(params, cg, nxt.to(cuda), t.to(cuda), cfg)
+        lc, cc = T.decode_step(cpu, cc, nxt, t, cfg)
+        assert ops.launches == n0  # a decode step runs no scan kernel
+        assert (lg.cpu() - lc).abs().max().item() <= 1e-4
+        t += 1

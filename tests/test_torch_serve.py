@@ -80,6 +80,28 @@ def test_greedy_tokens_match_jax_engine_padded_buckets(models):
     assert {c.request_id: c.tokens for c in out} == {c.request_id: c.tokens for c in jout}
 
 
+def test_greedy_tokens_match_jax_engine_hybrid_with_reused_slots():
+    """Reduced jamba without experts (Mamba and attention layers): 4
+    staggered requests of unequal prompt lengths on a 2-slot pool, so two
+    slots are reused. A reused slot must not continue the Mamba state of the
+    request it served before (prefill starts from zero state)."""
+    arch = "jamba_1_5_large_398b"
+    jcfg = jax_get_config(arch).replace(moe=None).reduced().replace(attn_impl="pallas")
+    cfg = get_config(arch).replace(moe=None).reduced()
+    jparams = split_params(JT.model_init(jax.random.PRNGKey(1), jcfg))[0]
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    prompts = _prompts(5, (12, 32, 32, 12), cfg.vocab_size)  # lengths the TPU scan takes
+    gens = (9, 4, 7, 6)
+    jeng = JServeEngine(jparams, jcfg, max_batch=2, max_len=48)
+    jout = jeng.run([JRequest(p, max_new_tokens=g) for p, g in zip(prompts, gens)])
+    eng = ServeEngine(params, cfg, max_batch=2, max_len=48)
+    assert eng.bucket_len(12) == 12  # recurrent state: exact-length prefill
+    out = eng.run([Request(p, max_new_tokens=g) for p, g in zip(prompts, gens)])
+    assert {c.request_id: c.tokens for c in out} == {c.request_id: c.tokens for c in jout}
+    assert [len(c.tokens) for c in sorted(out, key=lambda c: c.request_id)] == list(gens)
+    assert eng.stats()["prefill_calls"] == 4 and {c.slot for c in out} == {0, 1}
+
+
 def test_continuous_equals_lockstep_for_equal_lengths(models):
     _, _, cfg, params = models
     prompts = _prompts(1, (11, 11, 11, 11), cfg.vocab_size)
