@@ -13,12 +13,17 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             lengths included, and at the shapes each serve path gives it
             (yi-9b's and jamba's, H=64, K=8); max abs error beside its bar,
             kernel / plain / library (scaled_dot_product_attention, a
-            yardstick only) times, and the least time the card could take
-            (bytes or FLOPs bound).
+            yardstick only; causal without a mask where the window hides
+            nothing) times, and the least time the card could take (bytes or
+            FLOPs bound). flash_attention has two kernels: bf16 runs on the
+            tensor cores (`wgmma`), f32 on the FMA pipes (`simt`); each
+            attention line names its variant, and a bf16 line also times the
+            simt kernel on the same inputs (`v1_ms`).
 4. serve    the main path: yi-9b at full width and depth (48 layers, bf16,
             random weights from --seed) behind ServeEngine(max_batch=8),
             16 staggered requests; every kernel launch counter is zeroed just
-            before and read just after, and must match the path's structure.
+            before and read just after, and must match the path's structure;
+            every flash_attention launch must be the wgmma variant's.
 5. parity   yi-9b at full width, 4 layers: a 1000-token prefill and 8 decode
             steps through the kernels against the same through the plain
             versions; logits compared at a bf16 bar.
@@ -68,7 +73,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 from unittest import mock
@@ -77,6 +81,8 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "src"))
+from repro_torch.kernels.timing import nvidia_smi, time_ms  # noqa: E402
 
 PEAK_BYTES_S = 3.35e12                     # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,      # dense tensor-core bf16
@@ -99,8 +105,8 @@ SCAN_BAR = 1e-4        # the reference's selective-scan bar (tests/test_kernels.
 # about 4.7, where one bf16 ulp is 0.031. The parity line carries the
 # prefill's hidden-state gap after every layer, to show where it grows.
 HYBRID_PARITY_BAR = 0.1
-SPIN_CYCLES = 2_000_000                     # ~1 ms at H100 clocks
-ATTN_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+ATTN_SRC = {"wgmma": "src/repro_torch/kernels/flash_attention/csrc/flash_attention_wgmma.cu",
+            "simt": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"}
 DECODE_SRC = "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"
 GUIDED_SRC = "src/repro_torch/kernels/guided_update/csrc/guided_update.cu"
 SCAN_SRC = "src/repro_torch/kernels/selective_scan/csrc/selective_scan.cu"
@@ -116,31 +122,6 @@ TRAIN_CHECKED_SEEDS = 3   # seeds 0-2 of each fit are held against a reference
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int, flush: torch.Tensor) -> float:
-    """Mean device time of fn() over `iters` calls, L2 flushed before each.
-    A spin kernel queued ahead of the start event keeps the card busy while
-    the host enqueues fn, so the wrapper's host time is not counted."""
-    fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
 
 
 def attention_work(B, S, H, K, dh, window, dtype):
@@ -175,22 +156,33 @@ def check_attention(fa_ops, attention_ref, dev, flush, *, H, K, S, window, dtype
     q = torch.randn(B, S, H, dh, generator=g, device=dev).to(dtype)
     k = torch.randn(B, S, K, dh, generator=g, device=dev).to(dtype)
     v = torch.randn(B, S, K, dh, generator=g, device=dev).to(dtype)
+    variant = fa_ops.variant(dtype, dh)
     out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     err = (out.float() - attention_ref(q, k, v, causal=True, window=window)).abs().max().item()
     ms = time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True, window=window), 10, flush)
     plain = time_ms(lambda: attention_ref(q, k, v, causal=True, window=window), 3, flush)
+    v1_ms = None
+    if variant != "simt":  # the SIMT kernel on the same inputs, as the first version ran them
+        v1_ms = time_ms(lambda: fa_ops.run_variant(q, k, v, causal=True, window=window,
+                                                   variant="simt"), 3, flush)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    i = torch.arange(S, device=dev)
-    mask = (i[:, None] >= i[None, :]) & ((i[:, None] - i[None, :]) < window) if window else None
+    # the yardstick: SDPA's causal path where the window hides nothing (the same
+    # function), else the window as an explicit mask
+    mask = None
+    if window and window < S:
+        i = torch.arange(S, device=dev)
+        mask = (i[:, None] >= i[None, :]) & ((i[:, None] - i[None, :]) < window)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, is_causal=mask is None, enable_gqa=True), 10, flush)
     flops, nbytes = attention_work(B, S, H, K, dh, window, dtype)
     b_ms, b_by = bound(flops, nbytes, dtype)
-    return {"kernel": "flash_attention", "dtype": str(dtype).replace("torch.", ""),
+    return {"kernel": "flash_attention", "variant": variant,
+            "dtype": str(dtype).replace("torch.", ""),
             "B": B, "S": S, "H": H, "K": K, "dh": dh, "causal": True, "window": window,
-            "max_abs_err": err, "bar": BARS[dtype], "ms": ms, "plain_ms": plain,
-            "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+            "max_abs_err": err, "bar": BARS[dtype], "ms": ms, "v1_ms": v1_ms, "plain_ms": plain,
+            "library_ms": lib, "library_call": "sdpa_mask" if mask is not None else "sdpa_causal",
+            "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_decode(fd_ops, decode_ref, dev, flush, *, H, K, S, lens, dtype, seed):
@@ -214,7 +206,8 @@ def check_decode(fd_ops, decode_ref, dev, flush, *, H, K, S, lens, dtype, seed):
                                                          enable_gqa=True), 20, flush)
     flops, nbytes = decode_work(B, S, H, K, dh, np.asarray(lens), dtype)
     b_ms, b_by = bound(flops, nbytes, dtype)
-    return {"kernel": "flash_decode", "dtype": str(dtype).replace("torch.", ""),
+    return {"kernel": "flash_decode", "variant": "mma" if dtype == torch.bfloat16 else "simt",
+            "dtype": str(dtype).replace("torch.", ""),
             "B": B, "S": S, "H": H, "K": K, "dh": dh, "cache_len": list(lens),
             "max_abs_err": err, "bar": BARS[dtype], "ms": ms, "plain_ms": plain,
             "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
@@ -249,7 +242,7 @@ def serve_main_path(T, serve, counters, cfg, params, seed, *, phase, profile):
     Every launch counter is zeroed just before the requests are submitted and
     read just after the engine drains; the counts must be the path's. Then
     `profile(engine, serve, cfg, rng)`; its line is emitted here."""
-    reset, read = counters
+    reset, read, variants = counters
     rng = np.random.default_rng(seed)
     n_req = 16
     lens = rng.integers(128, 2049, n_req)
@@ -279,7 +272,7 @@ def serve_main_path(T, serve, counters, cfg, params, seed, *, phase, profile):
         if engine.prefill_calls == n_pre:
             decode_ms.append((time.perf_counter() - t) * 1e3)
             decode_tokens += engine.slot_steps - n_slots
-    launches = read()
+    launches, by_variant = read(), variants()
     stats = engine.stats()
     comps = engine.completions
     if len(comps) != n_req:
@@ -291,6 +284,9 @@ def serve_main_path(T, serve, counters, cfg, params, seed, *, phase, profile):
     want, on_path = path_launches(T, cfg, stats["prefill_calls"], stats["decode_steps"])
     if launches != want or any(launches[k] <= 0 for k in on_path):
         raise RuntimeError(f"{phase}: kernel launches {launches} != the path's {want}")
+    if by_variant != {"wgmma": launches["flash_attention"], "simt": 0}:
+        raise RuntimeError(f"{phase}: flash_attention launches by kernel {by_variant}: every "
+                           f"prefill launch must be the tensor-core (wgmma) kernel's")
     result = {
         "phase": phase, "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
         "dtype": cfg.compute_dtype, "max_batch": 8, "max_len": max_len, "requests": n_req,
@@ -302,6 +298,7 @@ def serve_main_path(T, serve, counters, cfg, params, seed, *, phase, profile):
         "decode_steps": stats["decode_steps"], "occupancy": stats["occupancy"],
         "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": {k: v for k, v in launches.items() if v},
+        "flash_attention_launches_by_variant": by_variant,
     }
     emit(profile(engine, serve, cfg, rng))
     del engine
@@ -523,6 +520,8 @@ def check_scan(ss_ops, scan_ref, dev, flush, *, B, S, ed, n, seed, chain_at=0):
 
 def reset_launches(fa_ops, fd_ops, ss_ops, gu_ops) -> None:
     fa_ops.launches = 0
+    for name in fa_ops.launches_by_variant:
+        fa_ops.launches_by_variant[name] = 0
     fd_ops.launches = 0
     ss_ops.launches = 0
     for name in gu_ops.launches:
@@ -809,7 +808,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch import kernels
     from repro_torch import serve
     from repro_torch.configs import get_config
@@ -909,7 +907,8 @@ def main(argv=None) -> int:
             raise RuntimeError(f"selective_scan disagrees with its plain version: {c}")
 
     counters = (lambda: reset_launches(fa_ops, fd_ops, ss_ops, gu_ops),
-                lambda: read_launches(fa_ops, fd_ops, ss_ops, gu_ops))
+                lambda: read_launches(fa_ops, fd_ops, ss_ops, gu_ops),
+                lambda: dict(fa_ops.launches_by_variant))
     refs = (attention_ref, decode_ref, selective_scan_ref)
     params, init_s = init_model(T, cfg, dev, args.seed)
     served = serve_main_path(T, serve, counters, cfg, params, args.seed, phase="serve",
@@ -925,7 +924,7 @@ def main(argv=None) -> int:
     data = (Xtr, ytr, k, Xte, yte)
     t0 = time.perf_counter()
     _, train_launches = train_main_path(
-        data, (Trainer, train_ps, delaysim, strategies), (*counters, ExperimentSpec), n_seeds)
+        data, (Trainer, train_ps, delaysim, strategies), (*counters[:2], ExperimentSpec), n_seeds)
     emit({"phase": "train_total", "seconds": time.perf_counter() - t0,
           "launches": train_launches})
     emit(profile_train(delaysim, strategies, ExperimentSpec, data, n_seeds))
@@ -942,29 +941,34 @@ def main(argv=None) -> int:
     # one entry per kernel and serve path: that path's launches beside the
     # numbers measured at the shape that path gives the kernel
     entries = []
-    for name, src, replaces, by_path in (
-            ("flash_attention", ATTN_SRC, "src/repro/kernels/flash_attention/kernel.py:27",
-             main_attn),
-            ("flash_decode", DECODE_SRC, "src/repro/kernels/flash_decode/kernel.py:22", main_dec),
-            ("selective_scan", SCAN_SRC, "src/repro/kernels/selective_scan/kernel.py:21",
+    main_scan["variant"] = "simt"
+    for name, replaces, by_path in (
+            ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:27", main_attn),
+            ("flash_decode", "src/repro/kernels/flash_decode/kernel.py:22", main_dec),
+            ("selective_scan", "src/repro/kernels/selective_scan/kernel.py:21",
              {"serve_hybrid": main_scan})):
         for run in (served, hybrid):
             if run["phase"] not in by_path:
                 continue
             c = by_path[run["phase"]]
             shape = {k: c[k] for k in ("B", "S", "H", "K", "ed", "n") if k in c}
-            entries.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+            src = {"flash_attention": ATTN_SRC.get(c["variant"]), "flash_decode": DECODE_SRC,
+                   "selective_scan": SCAN_SRC}[name]
+            entries.append({"name": name, "variant": c["variant"], "route": "cuda",
+                            "source": src, "replaces": replaces,
                             "path": run["phase"], "shape": shape,
                             "launches": run["launches"].get(name, 0),
                             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                            "v1_ms": c.get("v1_ms"),
                             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
     for name, (replaces, _) in GUIDED.items():
         c = main_guided[name]
-        entries.append({"name": name, "route": "cuda", "source": GUIDED_SRC,
+        entries.append({"name": name, "variant": "simt", "route": "cuda", "source": GUIDED_SRC,
                         "replaces": replaces, "path": "train", "shape": c["shape"],
                         "launches": train_launches[name],
-                        "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+                        "max_abs_err": c["max_abs_err"], "ms": c["ms"], "v1_ms": None,
+                        "plain_ms": c["plain_ms"],
                         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
                         "library_ms": None})
     print(card, flush=True)

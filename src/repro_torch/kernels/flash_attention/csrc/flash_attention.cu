@@ -1,23 +1,25 @@
-// Blocked online-softmax GQA attention (prefill) for Hopper, sm_90a.
+// Blocked online-softmax GQA attention (prefill) on the FMA pipes, sm_90a: the
+// SIMT kernel, for float32 (any of d_head 32/64/128) and bf16 at d_head 32.
 //
 // Replaces the TPU kernel `_attn_kernel` in
 // src/repro/kernels/flash_attention/kernel.py (reached through
-// `flash_attention_raw`). Same function: q (B,S,H,dh), k/v (B,S,K,dh), kv
-// head h / (H/K), causal and sliding-window masks, f32 softmax statistics and
-// accumulation, fully masked rows zeroed, alpha guarded at NEG_INF. Unlike the
-// TPU kernel it normalizes in-kernel and writes (B,S,H,dh) in q's dtype, and
-// it takes any S: the ragged tail of the last q and kv tiles is masked here
-// (the serve engine prefills sliding-window archs at exact prompt length).
+// `flash_attention_raw`) where the tensor-core kernel
+// (flash_attention_wgmma.cu, bf16 at d_head 64/128, the serve paths' case)
+// does not apply. Same function: q (B,S,H,dh), k/v (B,S,K,dh), kv head
+// h / (H/K), causal and sliding-window masks, f32 softmax statistics and
+// accumulation, fully masked rows zeroed, alpha guarded at NEG_INF. Unlike
+// the TPU kernel it normalizes in-kernel and writes (B,S,H,dh) in q's dtype,
+// and it takes any S: the ragged tail of the last q and kv tiles is masked.
 //
 // What bounds it: prefill attention at S >= 1k does 4*dh FLOPs per visible
-// (query, key) pair against 2*dh*elt bytes per key row read once, so it is
-// bound by operations, not bytes. Design: one CTA per (q-tile of 64 rows,
-// head, batch); the TPU's sequential kv grid axis becomes a loop inside the
-// CTA, with K/V tiles staged in shared memory as f32 and the (m, l, acc)
-// state kept in registers. kv tiles that the causal or window mask hides
-// entirely are skipped (exact: such a tile leaves m, l and acc unchanged).
-// The products run on the FMA pipes in f32, not on the tensor cores; that
-// is the simple first version, and mma/wgmma is the obvious next step.
+// (query, key) pair against 2*dh*elt bytes per key row, so it is bound by
+// operations: here the f32 FMA rate (67 TFLOP/s), since a float32 product
+// must keep the reference's 3e-5 bar and a TF32 tensor-core product does
+// not. Design: one CTA per (q-tile of 64 rows, head, batch); the TPU's
+// sequential kv grid axis becomes a loop inside the CTA, with K/V tiles
+// staged in shared memory as f32 and the (m, l, acc) state in registers. kv
+// tiles that the causal or window mask hides entirely are skipped (exact:
+// such a tile leaves m, l and acc unchanged).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>

@@ -1,8 +1,8 @@
 """Public wrapper of the flash decode kernel (csrc/flash_decode.cu).
 
 CUDA tensors launch the kernel (or raise); CPU tensors run `decode_ref`.
-`launches` counts wrapper calls that launched the kernel (its split pass and
-its combine pass are one launch of the wrapper), and only those.
+`launches` counts kernel launches (one per call: the kernel merges its
+splits itself), and only those.
 """
 from __future__ import annotations
 
@@ -14,21 +14,35 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.flash_decode.ref import decode_ref
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
                                                           ctypes.c_void_p]
 HEAD_DIMS = (32, 64, 128)  # the instantiations in csrc/flash_decode.cu
 MAX_GROUP = 8              # query heads per kv head one CTA serves
-TILE = 64                  # cache slots per loop step of the split kernel
-CTAS_PER_SM = 4            # split the cache until B*K*n_split covers the SMs this often
+TILE = 64                  # cache slots per ring stage of the kernel
+CTAS_PER_SM = 2            # B*K*n_split ~ this many CTAs an SM: the bf16 kernel fits two,
+                           # so the grid is one wave (each CTA pays a fence and an atomic)
 
 launches = 0
+_COUNTERS = {}             # (device, stream, B*K) -> int32 zeros the kernel leaves zero
 
 
 def n_splits(B: int, K: int, S: int, sms: int) -> int:
-    """Chunks of the cache per (b, kv head): enough CTAs to fill the card,
-    never a chunk shorter than one tile."""
+    """Splits per (b, kv head), from the pool capacity S and the card alone:
+    enough CTAs to fill the card, no more splits than S has tiles. Each CTA
+    takes its share of min(cache_len[b], S) on the device."""
     want = -(-CTAS_PER_SM * sms // (B * K))
     return max(1, min(want, -(-S // TILE)))
+
+
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The kernel's per-(b, kv head) arrival counters: zeroed once when first
+    allocated, then reset by the kernel itself. One buffer per device, stream
+    and B*K, so launches that may run at the same time never share one."""
+    key = (device, stream, n)
+    buf = _COUNTERS.get(key)
+    if buf is None:
+        buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return buf
 
 
 def _check(q, k_cache, v_cache, cache_len):
@@ -60,19 +74,20 @@ def flash_decode(q, k_cache, v_cache, cache_len):
                          f"{MAX_GROUP} query heads per kv head; got {dh}, {H // K}")
     if not all(t.is_contiguous() for t in (q, k_cache, v_cache, cache_len)):
         raise ValueError("flash_decode kernel needs contiguous q, caches and cache_len")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("flash_decode kernel needs 16-byte aligned caches")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("flash_decode kernel needs 16-byte aligned q and caches")
     code = kernels.dtype_code(q.dtype)
     ns = n_splits(B, K, S, kernels.sm_count(q.device))
     part_num = torch.empty((B, H, ns, dh), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((B, H, ns, 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    counters = _counters(q.device, stream, B * K)
     with torch.cuda.device(q.device):
         fn = kernels.kernel_fn("flash_decode_fwd", _ARGTYPES)
         rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-                part_num.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-                B, S, H, K, dh, ns, 1.0 / math.sqrt(dh), code,
-                torch.cuda.current_stream().cuda_stream)
+                part_num.data_ptr(), part_ml.data_ptr(), counters.data_ptr(), out.data_ptr(),
+                B, S, H, K, dh, ns, 1.0 / math.sqrt(dh), code, stream)
     kernels.check_launch("flash_decode", rc)
     launches += 1
     return out

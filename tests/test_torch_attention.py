@@ -131,6 +131,34 @@ def test_cpu_tensors_reach_the_plain_versions(monkeypatch):
     assert (fa_ops.launches, fd_ops.launches) == (n_fa, n_fd)
 
 
+@pytest.mark.parametrize("dtype,dh,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 32, "simt"),
+    (torch.float32, 32, "simt"), (torch.float32, 64, "simt"), (torch.float32, 128, "simt")])
+def test_flash_attention_variant_is_a_function_of_dtype_and_d_head(dtype, dh, want):
+    """bf16 at d_head 64 or 128 runs on the tensor cores; float32, or d_head
+    32, on the FMA pipes. Nothing else (shape, mask, device) enters the choice."""
+    assert fa_ops.variant(dtype, dh) == want
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float16, 64), (torch.float64, 128),
+                                      (torch.bfloat16, 48), (torch.float32, 256)])
+def test_flash_attention_variant_refuses_what_no_kernel_takes(dtype, dh):
+    with pytest.raises(ValueError, match="no flash_attention kernel"):
+        fa_ops.variant(dtype, dh)
+
+
+def test_cpu_tensors_launch_no_variant_and_run_variant_needs_cuda():
+    """On the CPU the wrapper runs the plain version for every dtype and counts
+    no launch of either kernel; run_variant, which always launches, refuses."""
+    before = dict(fa_ops.launches_by_variant)
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros(1, 8, 4, 64, dtype=dtype)
+        assert fa_ops.flash_attention(q, q[:, :, :2], q[:, :, :2]).dtype == dtype
+    assert fa_ops.launches_by_variant == before
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_ops.run_variant(q, q[:, :, :2], q[:, :, :2], variant="wgmma")
+
+
 def test_mixed_devices_raise():
     q = torch.zeros(1, 8, 4, 32)
     with pytest.raises(ValueError):

@@ -33,7 +33,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                  "repro_torch.kernels.guided_update.ref", "repro_torch.models.mamba",
                  "repro_torch.kernels.selective_scan.ops",
                  "repro_torch.kernels.selective_scan.ref",
-                 "repro_torch.configs.jamba_1_5_large_398b"):
+                 "repro_torch.configs.jamba_1_5_large_398b", "repro_torch.kernels.bench",
+                 "repro_torch.kernels.timing"):
         assert must in mods, must
     code = (
         "import importlib, sys\n"
@@ -53,6 +54,7 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "scripts", "attention_builds.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, REPO))

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels on the card, against their plain versions:
-flash_attention, flash_decode, the four guided-update kernels and the
+flash_attention (its tensor-core and SIMT kernels), flash_decode, the four
+guided-update kernels and the
 selective scan; a short scan-trainer fit on the card against the same fit on
 the CPU; and the reduced hybrid (jamba) stack through its kernels.
 
@@ -45,6 +46,57 @@ def test_flash_attention_kernel_on_card(cuda, dtype, S, window):
     assert (out.float() - ref).abs().max().item() <= atol
 
 
+# bf16 prefill shapes for the tensor-core kernel: ragged S around its 64-row
+# warpgroup tiles and 128-row kv tiles, windows only where S > window
+WGMMA_CASES = [(S, w) for S in (1, 63, 64, 65, 130, 1000, 2048, 2049)
+               for w in (0, 256, 1024) if w == 0 or S > w]
+
+
+def _attention_inputs(cuda, S, H, K, dh, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(1, S, n, dh, generator=g, device=cuda).to(dtype) for n in (H, K, K)]
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("H,K", [(32, 4), (64, 8)])
+@pytest.mark.parametrize("S,window", WGMMA_CASES)
+def test_flash_attention_wgmma_kernel_on_card(cuda, S, window, H, K, dh):
+    q, k, v = _attention_inputs(cuda, S, H, K, dh, torch.bfloat16, seed=S + window)
+    n0, w0 = fa_ops.launches, dict(fa_ops.launches_by_variant)
+    out = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == n0 + 1
+    assert fa_ops.launches_by_variant == {"wgmma": w0["wgmma"] + 1, "simt": w0["simt"]}
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert (out.float() - ref).abs().max().item() <= BF16_ATOL
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("S,causal,window", [(300, True, 0), (1000, False, 0), (777, True, 128)])
+def test_flash_attention_wgmma_unmasked_and_narrow_windows_on_card(cuda, dh, S, causal, window):
+    """Without the causal mask, and with a window narrower than a kv tile."""
+    q, k, v = _attention_inputs(cuda, S, 8, 2, dh, torch.bfloat16, seed=S)
+    w0 = fa_ops.launches_by_variant["wgmma"]
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches_by_variant["wgmma"] == w0 + 1
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    assert (out.float() - ref).abs().max().item() <= BF16_ATOL
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.float32, 64), (torch.float32, 128),
+                                      (torch.bfloat16, 32)])
+def test_flash_attention_simt_kernel_serves_f32_and_d_head_32(cuda, dtype, dh):
+    q, k, v = _attention_inputs(cuda, 200, 4, 2, dh, dtype)
+    w0 = dict(fa_ops.launches_by_variant)
+    out = fa_ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa_ops.launches_by_variant == {"wgmma": w0["wgmma"], "simt": w0["simt"] + 1}
+    atol = BF16_ATOL if dtype == torch.bfloat16 else F32_ATOL
+    assert (out.float() - attention_ref(q, k, v, causal=True)).abs().max().item() <= atol
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [1280, 333, 8192])
 def test_flash_decode_kernel_on_card(cuda, dtype, S):
@@ -74,10 +126,73 @@ def test_flash_decode_kernel_on_card_other_groups(cuda, H, K, dh):
     assert (out - decode_ref(q, kc, vc, lens)).abs().max().item() <= F32_ATOL
 
 
+def _decode_inputs(cuda, B, S, H, K, dh, dtype, lens, seed=2):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, 1, H, dh, generator=g, device=cuda).to(dtype)
+    kc = torch.randn(B, S, K, dh, generator=g, device=cuda).to(dtype)
+    vc = torch.randn(B, S, K, dh, generator=g, device=cuda).to(dtype)
+    return q, kc, vc, torch.tensor(lens, dtype=torch.int32, device=cuda)
+
+
+def _decode_close(out, q, kc, vc, cl, atol):
+    """Rows with a valid slot against decode_ref; rows with none give 0 (the
+    kernel's num / max(den, 1e-30); decode_ref's uniform softmax differs there)."""
+    ref = decode_ref(q, kc, vc, cl)
+    empty = cl == 0
+    assert bool((out[empty] == 0).all())
+    if (~empty).any():
+        assert (out.float() - ref)[~empty].abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lens", [
+    [0, 2100, 1500, 900, 180, 2048, 1337, 640],        # a row with no valid slot
+    [5000, 2112, 2113, 4224, 1, 2, 3, 64],             # cache_len > S: the ring has wrapped
+    [1, 5, 17, 31, 32, 33, 63, 7],                     # every row shorter than one tile
+    [2100], [0], [4 * 2112 + 9],                       # B = 1
+])
+def test_flash_decode_edge_rows_on_card(cuda, dtype, lens):
+    q, kc, vc, cl = _decode_inputs(cuda, len(lens), 2112, 32, 4, 128, dtype, lens)
+    out = fd_ops.flash_decode(q, kc, vc, cl)
+    torch.cuda.synchronize()
+    _decode_close(out, q, kc, vc, cl, BF16_ATOL if dtype == torch.bfloat16 else F32_ATOL)
+
+
+@pytest.mark.parametrize("H,K", [(32, 4), (64, 8)])
+def test_flash_decode_is_deterministic_and_resets_its_counters(cuda, H, K):
+    """Two calls give the same bits (the merge runs in split order, whichever
+    CTA finishes last); back-to-back calls on one stream, with no sync between,
+    both come out right, and the kernel leaves its arrival counters at zero."""
+    lens = [2100, 1500, 900, 180, 2048, 1337, 640, 1030]
+    q, kc, vc, cl = _decode_inputs(cuda, 8, 2112, H, K, 128, torch.bfloat16, lens)
+    outs = [fd_ops.flash_decode(q, kc, vc, cl) for _ in range(4)]
+    q2, kc2, vc2, cl2 = _decode_inputs(cuda, 8, 2112, H, K, 128, torch.bfloat16, lens[::-1], 3)
+    other = fd_ops.flash_decode(q2, kc2, vc2, cl2)
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    _decode_close(outs[-1], q, kc, vc, cl, BF16_ATOL)
+    _decode_close(other, q2, kc2, vc2, cl2, BF16_ATOL)
+    for buf in fd_ops._COUNTERS.values():
+        assert int(buf.abs().sum().item()) == 0
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("H,K", [(8, 8), (8, 2), (32, 4)])
+def test_flash_decode_bf16_group_sizes_on_card(cuda, dh, H, K):
+    q, kc, vc, cl = _decode_inputs(cuda, 3, 300, H, K, dh, torch.bfloat16, [1, 299, 1000])
+    _decode_close(fd_ops.flash_decode(q, kc, vc, cl), q, kc, vc, cl, BF16_ATOL)
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 64, 4, 48, device=cuda)
     with pytest.raises(ValueError, match="d_head"):
         fa_ops.flash_attention(q, q[:, :, :2], q[:, :, :2])
+    qh = torch.zeros(1, 64, 4, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="no flash_attention kernel"):
+        fa_ops.flash_attention(qh, qh[:, :, :2], qh[:, :, :2])
+    qb = torch.zeros(1, 64, 4, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="d_head"):
+        fa_ops.run_variant(qb, qb[:, :, :2], qb[:, :, :2], variant="wgmma")
     qd = torch.zeros(1, 1, 16, 64, device=cuda)
     kc = torch.zeros(1, 32, 1, 64, device=cuda)
     with pytest.raises(ValueError, match="query heads per kv head"):
