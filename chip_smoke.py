@@ -48,7 +48,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             the hybrid path's shape (B=1, S=2048, ed=16384, n=16), odd
             lengths (S = 1, 17, 1000), B=2 with h0 chained over two calls,
             inputs drawn as the model draws them; error beside its bar,
-            kernel and plain times, and the bound.
+            kernel time (its calls alone; `ms_with_cat` adds the
+            torch.cat of y, a copy of y) and plain time, and the bound.
 10. serve_hybrid  the third main path: jamba at full width, one period of
             8 layers (attention at l4, Mamba at the other 7), no experts,
             bf16, random weights from --seed, behind ServeEngine(max_batch=8,
@@ -82,9 +83,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
-from repro_torch.kernels.timing import nvidia_smi, time_ms  # noqa: E402
+from repro_torch.kernels.timing import PEAK_BYTES_S, nvidia_smi, time_ms  # noqa: E402
 
-PEAK_BYTES_S = 3.35e12                     # H100 SXM HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12,      # dense tensor-core bf16
               torch.float32: 67e12,        # f32 outside the tensor cores
               torch.float64: 34e12}        # f64 outside the tensor cores (H100 SXM data sheet)
@@ -493,25 +493,27 @@ def check_scan(ss_ops, scan_ref, dev, flush, *, B, S, ed, n, seed, chain_at=0):
     parts = [(0, cut)] + ([(cut, S)] if chain_at else [])
     pieces = [tuple(a[:, i:j].contiguous() for a in (x, dt, Bc, Cc)) for i, j in parts]
 
-    def kernel_run():
+    def kernel_calls():  # what is timed: the kernel's calls alone
         ys, h = [], None
         for xp, dp, bp, cp in pieces:
             y, h = ss_ops.selective_scan(xp, dp, A, bp, cp, h)
             ys.append(y)
-        return torch.cat(ys, 1), h
+        return ys, h
 
-    y, h = kernel_run()
+    ys, h = kernel_calls()
+    y = torch.cat(ys, 1)
     torch.cuda.synchronize()
     yr, hr = scan_ref(x, dt, A, Bc, Cc)
     err = max((y - yr).abs().max().item(), (h - hr).abs().max().item())
     big = B * S * ed > 1 << 22
-    ms = time_ms(kernel_run, 10 if big else 30, flush)
+    ms = time_ms(kernel_calls, 10 if big else 30, flush)
+    ms_cat = time_ms(lambda: torch.cat(kernel_calls()[0], 1), 10 if big else 30, flush)
     plain = time_ms(lambda: scan_ref(x, dt, A, Bc, Cc), 2 if big else 5, flush)
     bounds = [scan_bound(B, j - i, ed, n, k > 0) for k, (i, j) in enumerate(parts)]
     b_ms = sum(b for b, _ in bounds)
     return {"kernel": "selective_scan", "dtype": "float32", "B": B, "S": S, "ed": ed, "n": n,
             "chained_at": chain_at or None, "max_abs_err": err, "bar": SCAN_BAR, "ms": ms,
-            "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
+            "ms_with_cat": ms_cat, "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
             "bound_by": bounds[0][1], "y_absmax": yr.abs().max().item()}
 
 
@@ -941,7 +943,7 @@ def main(argv=None) -> int:
     # one entry per kernel and serve path: that path's launches beside the
     # numbers measured at the shape that path gives the kernel
     entries = []
-    main_scan["variant"] = "simt"
+    main_scan["variant"] = "smem_ring"
     for name, replaces, by_path in (
             ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:27", main_attn),
             ("flash_decode", "src/repro/kernels/flash_decode/kernel.py:22", main_dec),

@@ -1,8 +1,9 @@
-"""Measurements of the serve-path attention kernels on one NVIDIA GPU, beyond
-what chip_smoke.py reports.
+"""Measurements of the port's kernels on one NVIDIA GPU, beyond what
+chip_smoke.py reports.
 
     PYTHONPATH=src python -m repro_torch.kernels.bench decode-profile
     PYTHONPATH=src python -m repro_torch.kernels.bench decode-time
+    PYTHONPATH=src python -m repro_torch.kernels.bench guided-profile
 
 decode-profile: torch.profiler over `flash_decode` calls at the two serve
 paths' decode shapes (B=8 over the 2112-slot pool, ragged lengths, bf16,
@@ -22,6 +23,15 @@ floor (one trivial kernel timed alike). The kernel, the sum and the floor
 are timed again with the L2 flushed by a read, which leaves no dirty lines
 for their misses to write back (`*_read_flush_ms`).
 
+guided-profile: torch.profiler over calls of each of the four guided-update
+kernels, queued and flushed as decode-profile's, at the training path's
+shape (30 seeds x (31, 2) weights, f64) and at one yi-9b FFN leaf (4096 x
+11008; f32, f64, bf16): the median device time of the kernel itself, beside
+its time as chip_smoke.py takes it (timing.time_ms, whose floor is the
+timing method's) and its bytes bound (w, g, w_stale read and w' written in
+the leaf's dtype, each accumulator read and written at f32 or f64); and
+the device time of a kernel that adds 1 to one float, timed alike.
+
 Each prints one JSON line per shape, with the card's name and power limit.
 """
 from __future__ import annotations
@@ -35,10 +45,14 @@ import tempfile
 import torch
 
 from repro_torch.kernels.flash_decode import ops as fd_ops
-from repro_torch.kernels.timing import SPIN_CYCLES, nvidia_smi, time_ms
+from repro_torch.kernels.guided_update import ops as gu_ops
+from repro_torch.kernels.timing import PEAK_BYTES_S, SPIN_CYCLES, nvidia_smi, time_ms
 
 DEC_LENS = [2100, 1500, 900, 180, 2048, 1337, 640, 1030]  # chip_smoke's ragged decode rows
 HEADS = {"serve": (32, 4), "serve_hybrid": (64, 8)}       # yi-9b, jamba
+# guided kernel -> the accumulators it carries
+GUIDED = {"guided_sgd_update": 0, "guided_momentum_update": 1, "guided_rmsprop_update": 1,
+          "guided_adam_update": 2}
 
 
 def device_kernels(prof) -> list:
@@ -54,32 +68,47 @@ def device_kernels(prof) -> list:
     return sorted(ks, key=lambda k: k[1])
 
 
-def decode_profile(calls: int = 30) -> None:
+def split_calls(kernels: list) -> list:
+    """`kernels` (as device_kernels gives them) split into calls: each call is
+    queued behind a spin kernel, and the L2 flush of the next call comes last
+    before the next spin kernel, so it is dropped. Empty calls are dropped."""
+    groups = []
+    for k in kernels:
+        if "sleep" in k[0] or "spin" in k[0]:
+            groups.append([])
+        elif groups:
+            groups[-1].append(k)
+    return [g for g in [g[:-1] for g in groups[:-1]] + groups[-1:] if g]
+
+
+def profile_calls(call, calls: int, flush: torch.Tensor) -> list:
+    """The kernels (name, start us, duration us) that each of `calls` calls
+    launched, each call queued behind a spin kernel with the L2 flushed
+    before it, after three calls to warm up."""
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
+            call()
+        torch.cuda.synchronize()
+    per_call = split_calls(device_kernels(prof))
+    if len(per_call) != calls:
+        raise RuntimeError(f"bench: kernels for {len(per_call)} calls after {calls} spin kernels")
+    return per_call
+
+
+def decode_profile(calls: int = 30) -> None:
     dev = torch.device("cuda")
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
     for path, (H, K) in HEADS.items():
         q, kc, vc, cl = decode_inputs(H, K, dev)
         B, S, dh = q.shape[0], kc.shape[1], q.shape[3]
-        flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
-        for _ in range(3):
-            fd_ops.flash_decode(q, kc, vc, cl)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                flush.zero_()
-                torch.cuda._sleep(SPIN_CYCLES)
-                fd_ops.flash_decode(q, kc, vc, cl)
-            torch.cuda.synchronize()
-        # split the kernel stream at the spin kernels: what follows one is one call
-        per_call, cur = [], None
-        for name, ts, dur in device_kernels(prof):
-            if "sleep" in name or "spin" in name:
-                cur = []
-                per_call.append(cur)
-            elif cur is not None and "elementwise" not in name:  # not the L2 flush
-                cur.append((name, ts, dur))
-        per_call = [c for c in per_call if c]
+        per_call = profile_calls(lambda: fd_ops.flash_decode(q, kc, vc, cl), calls, flush)
         names = [n for n, _, _ in per_call[0]]
         kernels = [{"name": n[:60], "device_us": statistics.median(c[i][2] for c in per_call)}
                    for i, n in enumerate(names)]
@@ -126,14 +155,63 @@ def decode_time(iters: int = 50) -> None:
         print(json.dumps(line), flush=True)
 
 
+def guided_call(name, w, g, ws, accs):
+    """One call of guided kernel `name` at the training path's hypers: lr 0.2,
+    DC-ASGD lambda 0.04, adam at step 7."""
+    if name == "guided_sgd_update":
+        return gu_ops.guided_sgd_update_raw(w, g, ws, 0.2, 0.04)
+    if name == "guided_momentum_update":
+        return gu_ops.guided_momentum_update_raw(w, g, ws, accs[0], 0.2, 0.04, 0.9)
+    if name == "guided_rmsprop_update":
+        return gu_ops.guided_rmsprop_update_raw(w, g, ws, accs[0], 0.2, 0.04, 0.9, 1e-8)
+    return gu_ops.guided_adam_update_raw(w, g, ws, accs[0], accs[1], 7, 0.2, 0.04, 0.9,
+                                         0.999, 1e-8)
+
+
+def first_kernel_us(call, calls: int, flush: torch.Tensor) -> list:
+    """Device time (us) of the first kernel `call` launches, once per call,
+    as profile_calls takes it."""
+    return [c[0][2] for c in profile_calls(call, calls, flush)]
+
+
+def guided_profile(calls: int = 50) -> None:
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    sink = torch.zeros(1, device=dev)
+    floor = first_kernel_us(lambda: sink.add_(1.0), calls, flush)  # a one-float kernel
+    for shape, dtype in (((30, 31, 2), torch.float64), ((4096, 11008), torch.float32),
+                         ((4096, 11008), torch.float64), ((4096, 11008), torch.bfloat16)):
+        ct = torch.promote_types(dtype, torch.float32)
+        gen = torch.Generator(device=dev).manual_seed(5)
+        w = torch.randn(shape, generator=gen, device=dev, dtype=ct)
+        g = 0.01 * torch.randn(shape, generator=gen, device=dev, dtype=ct)
+        ws = w + 0.05 * torch.randn(shape, generator=gen, device=dev, dtype=ct)
+        accs = [torch.rand(shape, generator=gen, device=dev, dtype=ct) * sc for sc in (0.1, 0.05)]
+        w, g, ws = w.to(dtype), g.to(dtype), ws.to(dtype)
+        line = {"bench": "guided-profile", "card": nvidia_smi(), "shape": list(shape),
+                "dtype": str(dtype).replace("torch.", ""),
+                "one_float_kernel_device_us": statistics.median(floor), "kernels": {}}
+        for name, n_acc in GUIDED.items():
+            call = lambda: guided_call(name, w, g, ws, accs)  # noqa: E731
+            durs = first_kernel_us(call, calls, flush)
+            nbytes = w.numel() * (4 * w.element_size() + 2 * n_acc * accs[0].element_size())
+            line["kernels"][name] = {
+                "device_us": statistics.median(durs), "device_us_min": min(durs),
+                "time_ms": time_ms(call, calls, flush), "bytes": nbytes,
+                "bound_us": nbytes / PEAK_BYTES_S * 1e6}
+        print(json.dumps(line), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("what", choices=("decode-profile", "decode-time"))
+    ap.add_argument("what", choices=("decode-profile", "decode-time", "guided-profile"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench: no CUDA device; this script measures a GPU")
     if args.what == "decode-profile":
         decode_profile()
+    elif args.what == "guided-profile":
+        guided_profile()
     else:
         decode_time()
     return 0

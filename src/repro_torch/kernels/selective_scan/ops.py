@@ -2,7 +2,8 @@
 
 CUDA tensors launch the kernel (or raise); CPU tensors run
 `selective_scan_ref`. `launches` counts kernel launches, and only those.
-The kernel takes f32, contiguous inputs, any S >= 1 and any ed, and n <= 16.
+The kernel takes f32, contiguous inputs (aligned to 4 bytes at least), any
+S >= 1 and any ed, and n <= 16.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
-MAX_STATE = 16  # n the kernel takes: 4 lanes of at most 4 states per channel
+MAX_STATE = 16  # n the kernel takes: 2 lanes of at most 8 states per channel
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 launches = 0

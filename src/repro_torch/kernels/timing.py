@@ -7,6 +7,7 @@ import subprocess
 import torch
 
 SPIN_CYCLES = 2_000_000  # ~1 ms at H100 clocks
+PEAK_BYTES_S = 3.35e12    # H100 SXM HBM3: the memory rate every bytes bound uses
 
 
 def nvidia_smi() -> str:

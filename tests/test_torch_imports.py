@@ -55,6 +55,7 @@ def _sources():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "scripts", "attention_builds.py")
+    yield os.path.join(REPO, "scripts", "scan_builds.py")
 
 
 @pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, REPO))

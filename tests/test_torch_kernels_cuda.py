@@ -318,36 +318,83 @@ def _scan_inputs(cuda, B, S, ed, n, seed, model_like=False):
     return x, dt, A, Bc, Cc, h0
 
 
-@pytest.mark.parametrize("B,S,ed,n,model_like", [
-    (1, 1, 16384, 16, True), (1, 17, 1000, 16, False), (2, 1000, 4096, 16, True),
-    (2, 64, 128, 16, False), (1, 64, 64, 4, False), (3, 33, 200, 8, False),
-    (1, 9, 70, 13, False), (1, 5, 64, 12, False)])
-def test_selective_scan_kernel_on_card(cuda, B, S, ed, n, model_like):
+SCAN_TC = 32  # time steps of one chunk of the kernel's shared-memory ring
+
+
+def _assert_scan_matches(x, dt, A, Bc, Cc, h0):
+    """One kernel call (one launch) against the plain version at SCAN_ATOL."""
     from repro_torch.kernels.selective_scan import ops
     from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
+    n0 = ops.launches
+    y, h = ops.selective_scan(x, dt, A, Bc, Cc, h0)
+    torch.cuda.synchronize()
+    assert ops.launches == n0 + 1
+    yr, hr = selective_scan_ref(x, dt, A, Bc, Cc, h0)
+    assert (y - yr).abs().max().item() <= SCAN_ATOL
+    assert (h - hr).abs().max().item() <= SCAN_ATOL
+
+
+@pytest.mark.parametrize("B,S,ed,n,model_like", [
+    (1, 1, 16384, 16, True), (1, 17, 1000, 16, False), (2, 1000, 4096, 16, True),
+    (2, 64, 128, 16, False), (1, 64, 64, 4, False), (3, 33, 200, 8, False),
+    (1, 9, 70, 13, False), (1, 5, 64, 12, False),
+    # lengths at the chunk's edges
+    *[(1, S, 256, 16, True) for S in (1, SCAN_TC - 1, SCAN_TC, SCAN_TC + 1, 2048 + 3)],
+    # widths not a multiple of the block's 64 channels, or of 4 (no 16-byte rows)
+    *[(2, 45, ed, 16, False) for ed in (4, 65, 70, 1000)],
+    *[(1, 100, 192, n, False) for n in (1, 4, 8, 12, 13, 16)],
+    (3, 77, 200, 16, True)])  # batch rows follow one another inside one launch
+def test_selective_scan_kernel_on_card(cuda, B, S, ed, n, model_like):
     x, dt, A, Bc, Cc, h0 = _scan_inputs(cuda, B, S, ed, n, seed=S + ed, model_like=model_like)
     for h in (h0, None):
-        n0 = ops.launches
-        y, hf = ops.selective_scan(x, dt, A, Bc, Cc, h)
-        torch.cuda.synchronize()
-        assert ops.launches == n0 + 1
-        yr, hr = selective_scan_ref(x, dt, A, Bc, Cc, h)
-        assert (y - yr).abs().max().item() <= SCAN_ATOL
-        assert (hf - hr).abs().max().item() <= SCAN_ATOL
+        _assert_scan_matches(x, dt, A, Bc, Cc, h)
 
 
-def test_selective_scan_kernel_chains_h0(cuda):
+@pytest.mark.parametrize("cut", [400, 13 * SCAN_TC])
+def test_selective_scan_kernel_chains_h0(cuda, cut):
+    """h0 carried from one call to the next, split inside a chunk (400) and
+    on a chunk boundary (416); the single call matches the plain version."""
     from repro_torch.kernels.selective_scan import ops
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
     x, dt, A, Bc, Cc, _ = _scan_inputs(cuda, 2, 777, 2048, 16, seed=3, model_like=True)
     y, h = ops.selective_scan(x, dt, A, Bc, Cc)
-    y1, h1 = ops.selective_scan(x[:, :400].contiguous(), dt[:, :400].contiguous(), A,
-                                Bc[:, :400].contiguous(), Cc[:, :400].contiguous())
-    y2, h2 = ops.selective_scan(x[:, 400:].contiguous(), dt[:, 400:].contiguous(), A,
-                                Bc[:, 400:].contiguous(), Cc[:, 400:].contiguous(), h0=h1)
+    yr, hr = selective_scan_ref(x, dt, A, Bc, Cc)
+    assert (y - yr).abs().max().item() <= SCAN_ATOL
+    assert (h - hr).abs().max().item() <= SCAN_ATOL
+    y1, h1 = ops.selective_scan(x[:, :cut].contiguous(), dt[:, :cut].contiguous(), A,
+                                Bc[:, :cut].contiguous(), Cc[:, :cut].contiguous())
+    y2, h2 = ops.selective_scan(x[:, cut:].contiguous(), dt[:, cut:].contiguous(), A,
+                                Bc[:, cut:].contiguous(), Cc[:, cut:].contiguous(), h0=h1)
     assert (torch.cat([y1, y2], 1) - y).abs().max().item() <= SCAN_ATOL
     assert (h2 - h).abs().max().item() <= SCAN_ATOL
+
+
+@pytest.mark.parametrize("ed,n", [(1024, 16), (70, 13)])
+def test_selective_scan_kernel_takes_4_byte_aligned_views(cuda, ed, n):
+    """x, dt, B and C as contiguous views one float into their buffers:
+    aligned to 4 bytes, not 16; the kernel takes them."""
+    B, S = 2, 67
+
+    def view(a):
+        buf = torch.zeros(a.numel() + 1, device=cuda)
+        buf[1:] = a.flatten()
+        v = buf[1:1 + a.numel()].view(a.shape)
+        assert v.is_contiguous() and v.data_ptr() % 16 == 4
+        return v
+
+    x, dt, A, Bc, Cc, h0 = _scan_inputs(cuda, B, S, ed, n, seed=ed + n)
+    _assert_scan_matches(view(x), view(dt), A, view(Bc), view(Cc), h0)
+
+
+def test_selective_scan_kernel_is_deterministic(cuda):
+    from repro_torch.kernels.selective_scan import ops
+
+    x, dt, A, Bc, Cc, h0 = _scan_inputs(cuda, 2, 300, 2048, 16, seed=9, model_like=True)
+    y1, h1 = ops.selective_scan(x, dt, A, Bc, Cc, h0)
+    y2, h2 = ops.selective_scan(x, dt, A, Bc, Cc, h0)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
 def test_selective_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -93,3 +93,42 @@ def test_scan_wrapper_refuses_mismatched_shapes():
         ops.selective_scan(x, dt, A, Bc, Cc, h0[:1])
     with pytest.raises(ValueError, match="S >= 1"):
         ops.selective_scan(x[:, :0], dt[:, :0], A, Bc[:, :0], Cc[:, :0])
+
+
+FLUSH, SPIN = ("elementwise_kernel<fill>", 0, 1.0), ("spin_kernel", 1, 1000.0)
+
+
+@pytest.mark.parametrize("stream,calls", [
+    # one kernel a call, each call's flush last before the next spin kernel
+    ([FLUSH, SPIN, ("decode", 2, 9.0), FLUSH, SPIN, ("decode", 3, 8.0)],
+     [[("decode", 2, 9.0)], [("decode", 3, 8.0)]]),
+    # an elementwise kernel that is the call itself is kept
+    ([FLUSH, SPIN, ("elementwise_kernel<add>", 2, 1.2), ("tail", 3, 1.0), FLUSH, SPIN,
+      ("elementwise_kernel<add>", 4, 1.3)],
+     [[("elementwise_kernel<add>", 2, 1.2), ("tail", 3, 1.0)],
+      [("elementwise_kernel<add>", 4, 1.3)]]),
+    # a call that launched nothing is dropped
+    ([FLUSH, SPIN, FLUSH, SPIN, ("k", 5, 2.0)], [[("k", 5, 2.0)]]),
+])
+def test_bench_splits_a_profile_into_calls_at_the_spin_kernels(stream, calls):
+    from repro_torch.kernels import bench
+
+    assert bench.split_calls(stream) == calls
+
+
+def test_measurement_scripts_refuse_to_run_without_a_card():
+    import os
+    import subprocess
+    import sys
+
+    from repro_torch.kernels import bench
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the scripts would measure it")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        bench.main(["guided-profile"])
+    script = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "scripts", "scan_builds.py")
+    proc = subprocess.run([sys.executable, script], capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    assert proc.stdout == ""
