@@ -61,12 +61,42 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             with the prefill's hidden-state gap after every layer.
 12. profile_hybrid  torch.profiler over one 2048-token prefill and one
             decode step of 8 slots: device time and selective_scan's share.
+13. mesh    the fourth main path: the mesh trainer (guided / DC-ASGD parallel
+            SGD on a transformer) training yi-9b at full width through
+            Trainer.from_spec(spec, device="cuda").fit(), 5 fits of 20 steps
+            (seq 128, global batch 8, c = 4 workers, rho 10: two window ends):
+            gSSGD, DC-ASGD and the two-pass gSSGD (the second backward of
+            `correct` at both window ends) with sgd at full depth (48 layers,
+            8.83B bf16 params), gSSGD-momentum and DC-ASGD-guided-adam at 16
+            layers (their f32 moments do not fit beside 48). Every launch
+            counter is zeroed before each fit and read after: the fused
+            guided-update kernel launches once per param leaf per step,
+            nothing else launches; every loss is finite; peak memory (the
+            two-pass fit's within half the params' bytes of gSSGD's: the
+            step's grads are freed before the second backward), steps/s,
+            tokens/s and the fused update's device time a step (per leaf,
+            beside its bytes bound) are printed. Then, after each fit, its
+            largest leaf (FFN `wi`, up to 4.33G elements) goes through the
+            kernel once in place with a real gradient, held against the
+            plain version computed one layer slice at a time.
+14. mesh_parity  yi-9b at full width, 4 layers, DC-ASGD (lambda 0.04): 3
+            steps through the fused kernels and 3 through their plain
+            versions from one state on the same batches: params within one
+            bf16 ulp after step 1, losses within one bf16 ulp of their size.
+15. profile_mesh  gSSGD at full depth, global batch 16 x seq 1024: the wall
+            time of 2 warm steps, then torch.profiler over 2 more: the card's
+            busy share (the union of the kernels' intervals over the
+            profiled wall time), the top kernels, the guided kernels' share
+            of a step, tokens/s and the model-FLOPs utilization (mfu).
 
-The yi-9b phases (3-5) run first and free their model before the hybrid's.
-Then a line with the card's name and power limit, a {"kernels": [...]} line
+The yi-9b phases (3-5) run first and free their model before the hybrid's;
+the mesh phases run last, each fit's state freed before the next. Then a
+line with the card's name and power limit, a {"kernels": [...]} line
 listing all seven kernels (flash_attention and flash_decode once for each
-serve path, at that path's shape and with that path's launches), and last
-{"ok": true, "device": {...}}. Exits 1 without a CUDA device.
+serve path, at that path's shape and with that path's launches; the guided
+kernels once for the scan trainer and once for each mesh fit, at that
+fit's largest leaf and with that fit's launches), and last {"ok": true,
+"device": {...}}. Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -118,6 +148,7 @@ GUIDED = {"guided_sgd_update": ("src/repro/kernels/guided_update/kernel.py:83", 
 GUIDED_BARS = {torch.float64: 1e-12, torch.float32: 1e-6}  # the reference's (DESIGN.md §11)
 TRAIN_BAR = 1e-5          # the reference's scan-vs-train_ps bar (tests/test_delaysim.py)
 TRAIN_CHECKED_SEEDS = 3   # seeds 0-2 of each fit are held against a reference
+MESH_STEPS = 20           # two window ends at rho 10: the guided correction fires
 
 
 def emit(obj) -> None:
@@ -413,8 +444,8 @@ def parity(T, L, M, refs, cfg, params, dev, seed, *, phase, bar):
     def run():
         hidden = []
 
-        def spy(lp, x, cfg_, i, rope, cache=None, slots=None):
-            x = layer_apply(lp, x, cfg_, i, rope, cache, slots)
+        def spy(lp, x, cfg_, i, rope, cache, slots, impl):
+            x = layer_apply(lp, x, cfg_, i, rope, cache, slots, impl)
             if slots is None:  # prefill
                 hidden.append(x)
             return x
@@ -803,6 +834,417 @@ def profile_train(delaysim, strategies, ExperimentSpec, data, n_seeds, arrivals=
                             for e in top]}
 
 
+# ---------------------------------------------------------- mesh trainer
+
+
+def mesh_fits(ExperimentSpec, seed):
+    """The mesh phase's fits: name -> spec. yi-9b at full width, seq 128,
+    global batch 8, c = 4 workers, rho 10, 20 steps, constant lr. Each lr
+    keeps 20 steps finite: sgd at tests/test_engine.py's 1e-2 (lr * c = 0.04
+    on gradients of a mean token loss, small against weights of 1/64);
+    momentum at 1e-3, since its steps add up to 1 / (1 - beta) = 10 times
+    sgd's; adam at 1e-4, since it moves every weight by about lr * c a step
+    whatever the gradient's size, 0.0004 against weights of 0.016. Through
+    the spec dc_asgd_guided folds its replay into the one backward (as the
+    reference's spec lowers it); guided_two_pass runs the second backward."""
+    base = dict(backend="mesh", arch="yi_9b", reduced=False, seq_len=128, global_batch=8,
+                workers=4, rho=10, steps=MESH_STEPS, schedule="constant", seed=seed)
+    sixteen = (("n_layers", 16),)
+    return {
+        "gSSGD": ExperimentSpec(mode="ssgd", strategy="guided_fused", lr=1e-2, **base),
+        "DC-ASGD": ExperimentSpec(mode="asgd", strategy="dc_asgd", lr=1e-2, **base),
+        "gSSGD-two-pass": ExperimentSpec(mode="ssgd", strategy="guided_two_pass", lr=1e-2,
+                                         **base),
+        "gSSGD-momentum-16L": ExperimentSpec(mode="ssgd", strategy="guided_fused",
+                                             optimizer="momentum", lr=1e-3,
+                                             model_overrides=sixteen, **base),
+        "DC-ASGD-guided-adam-16L": ExperimentSpec(mode="asgd", strategy="dc_asgd_guided",
+                                                  optimizer="adam", lr=1e-4,
+                                                  model_overrides=sixteen, **base),
+    }
+
+
+MESH_ACCS = {"sgd": (), "momentum": ("m",), "adam": ("m", "v")}
+
+
+def leaf_update_bytes(w, ws_is_w, n_acc):
+    """Bytes one fused update of leaf `w` must move: w and g read, w_stale
+    read unless it is w itself (SSGD), w written, each f32 accumulator read
+    and written."""
+    elt = w.element_size()
+    return w.numel() * (elt * (3 if ws_is_w else 4) + 2 * n_acc * 4)
+
+
+def fused_update_times(gu_ops, rep, spec):
+    """The fused update of one step on the fit's final state, timed leaf by
+    leaf with CUDA events (gradients of zeros: the kernel's time does not
+    depend on them): (ms a step, bound ms a step). These launches come after
+    the fit's counters were read."""
+    from repro_torch.common import tree_leaves, tree_map
+
+    gcfg = spec.to_guided_config()
+    name = spec.optimizer
+    fused = gu_ops.fused_update_for(name)
+    params, gstate = rep.model, rep.state
+    grads = tree_map(torch.zeros_like, params)
+    w_ref = gstate.w_stale if gcfg.needs_stale else params
+    accs = [tree_leaves(gstate.opt_state[k]) for k in MESH_ACCS[name]]
+    total_ms, total_bound = 0.0, 0.0
+    for i, (w, g, ws) in enumerate(zip(tree_leaves(params), tree_leaves(grads),
+                                       tree_leaves(w_ref))):
+        acc = tuple(a[i] for a in accs)
+
+        def call():
+            fused(w, g, ws, acc, 1, 1e-3, 0.04, inplace=True)
+
+        call()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        total_ms += statistics.median(times)
+        total_bound += leaf_update_bytes(w, ws is w, len(acc)) / PEAK_BYTES_S * 1e3
+    del grads
+    return total_ms, total_bound
+
+
+def check_fit_leaf(mods, gu_ref, flush, rep, spec):
+    """The fit's largest param leaf (FFN wi: 48 or 16 x 4096 x 2 x 11008 bf16,
+    past 2^31 elements at 48 layers) through its optimizer's kernel, as the
+    fit calls it: once in place, at the fit's lr * c and lambda, with a real
+    gradient (one backward of the mean token loss at the fit's final state
+    for that leaf alone, on a fresh batch). The result is held against the
+    plain version computed one layer slice at a time on the same inputs
+    (the plain version of a whole leaf holds several f32 temporaries of it:
+    17.3 GB each at 48 layers): weights within one bf16 ulp, accumulators
+    within the f32 bar. Then the kernel's time in place and out of place,
+    the plain version's over every slice, and the bytes bound, all at the
+    whole leaf. These launches come after the fit's counters were read."""
+    Trainer, ExperimentSpec, gu_ops, M = mods
+    from repro_torch.common import tree_leaves, tree_unflatten
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import get_optimizer
+
+    cfg, gcfg = spec.model_config(), spec.to_guided_config()
+    strategy = M.resolve_strategy(gcfg, spec.strategy)
+    opt = get_optimizer(spec.optimizer)
+    hy = dict(opt.hypers)
+    hy.pop("weight_decay", 0.0)
+    fused = strategy.sim_kernel(opt.name, **hy)
+    lam = float(strategy.sim_kernel_lambda())
+    lr = float(np.float32(spec.lr) * np.float32(spec.workers))  # the fit's lr * c
+    params, gstate = rep.model, rep.state
+    leaves = tree_leaves(params)
+    i = max(range(len(leaves)), key=lambda j: leaves[j].numel())
+    grad_at = gstate.w_stale if gcfg.needs_stale else params
+    at = list(tree_leaves(grad_at))
+    at[i] = at[i].detach().requires_grad_()
+    stream = synthetic_lm_batches(cfg.vocab_size, spec.seq_len, spec.global_batch,
+                                  seed=spec.seed + 1)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(stream).items()}
+    per_ex, aux, _ = T.forward_train(tree_unflatten(grad_at, at), batch, cfg)
+    (g,) = torch.autograd.grad(per_ex.mean() + aux, [at[i]])
+    del per_ex, aux, at
+    w = leaves[i]
+    ws = tree_leaves(gstate.w_stale)[i] if gcfg.needs_stale else w
+    acc = tuple(tree_leaves(gstate.opt_state[k])[i] for k in MESH_ACCS[opt.name])
+    t = gstate.opt_state["t"] + 1 if opt.name == "adam" else None
+    name = f"guided_{opt.name}_update"
+
+    def call(inplace):
+        return fused(w, g, ws, acc, t, lr, lam, inplace=inplace)
+
+    # out of place first: it leaves its inputs as they are
+    oop_ms = time_ms(lambda: call(False), 3, flush)
+    torch.cuda.empty_cache()
+    w0 = w.clone()
+    ws0 = w0 if ws is w else ws
+    acc0 = tuple(a.clone() for a in acc)
+    call(True)
+    torch.cuda.synchronize()
+
+    raw = {"sgd": "guided_sgd_update_raw", "momentum": "guided_momentum_update_raw",
+           "adam": "guided_adam_update_raw"}[opt.name]
+    ref = getattr(gu_ref, raw.replace("_raw", "_ref"))
+
+    def plain(j):
+        """The plain update of layer slice j of the leaf, from its inputs."""
+        with mock.patch.object(gu_ops, raw, lambda *a, out=None, **kw: ref(*a, **kw)):
+            return fused(w0[j], g[j], ws0[j], tuple(a[j] for a in acc0), t, lr, lam)
+
+    def plain_all():
+        for j in range(w.shape[0]):
+            plain(j)
+
+    err, ok, nonzero = 0.0, True, 0
+    for j in range(w.shape[0]):
+        rw, racc = plain(j)
+        e, o = guided_err((w[j], *(a[j] for a in acc)), (rw, *racc))
+        err, ok = max(err, e), ok and o
+        nonzero += torch.count_nonzero(g[j]).item()  # by slice: its int64 count is 8 B an element
+    plain_ms = time_ms(plain_all, 2, flush)
+    ms = time_ms(lambda: call(True), 5, flush)
+    flops = GUIDED[name][1] * w.numel()
+    b_ms, b_by = bound(flops, leaf_update_bytes(w, ws is w, len(acc)), torch.float32)
+    res = {"kernel": name, "shape": list(w.shape), "dtype": str(w.dtype).replace("torch.", ""),
+           "elements": w.numel(), "lr": lr, "lam": lam,
+           "grad_nonzero_share": nonzero / g.numel(),
+           "max_abs_err": err, "within_bar": ok, "ms": ms, "out_of_place_ms": oop_ms,
+           "plain_ms": plain_ms, "plain_by": "layer slice", "bound_ms": b_ms,
+           "bound_by": b_by, "bound_share": b_ms / ms, "library_ms": None}
+    del g, w0, ws0, acc0
+    if not ok or res["grad_nonzero_share"] == 0:
+        raise RuntimeError(f"mesh {spec.strategy}: largest leaf disagrees with plain: {res}")
+    return res
+
+
+def mesh_main_path(mods, counters, gu_ref, flush, seed):
+    """The mesh phase's fits through Trainer(device="cuda"). Each fit's
+    launch counters are zeroed just before it and read just after; the fused
+    kernel of its optimizer must launch (param leaves) x steps times, counted
+    from the param dict, and no other kernel at all. After each fit its
+    largest leaf is held against the plain update (check_fit_leaf)."""
+    Trainer, ExperimentSpec, gu_ops, _ = mods
+    reset, read = counters
+    from repro_torch.common import tree_leaves
+
+    results, peaks = [], {}
+    for name, spec in mesh_fits(ExperimentSpec, seed).items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        rep = Trainer.from_spec(spec).fit()      # device="cuda"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        peaks[name] = peak_gb
+        leaves = tree_leaves(rep.model)
+        kernel = f"guided_{spec.optimizer}_update"
+        want = {k: 0 for k in launches}
+        want[kernel] = len(leaves) * MESH_STEPS
+        if launches != want:
+            raise RuntimeError(f"mesh {name}: launches {launches} != {want} "
+                               f"({len(leaves)} param leaves x {MESH_STEPS} steps)")
+        losses = [h["loss"] for h in rep.history]
+        if len(losses) != MESH_STEPS or not np.all(np.isfinite(losses)):
+            raise RuntimeError(f"mesh {name}: losses {losses}")
+        cfg = spec.model_config()
+        n_params = sum(x.numel() for x in leaves)
+        param_gb = sum(x.numel() * x.element_size() for x in leaves) / 1e9
+        fused_ms, fused_bound = fused_update_times(gu_ops, rep, spec)
+        res = {"phase": "mesh", "fit": name, "mode": spec.mode, "strategy": spec.strategy,
+               "optimizer": spec.optimizer, "lr": spec.lr, "arch": cfg.name,
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+               "n_params": n_params, "param_gb": param_gb,
+               "param_leaves": len(leaves), "steps": MESH_STEPS, "seq_len": spec.seq_len,
+               "global_batch": spec.global_batch, "workers": spec.workers, "rho": spec.rho,
+               "wall_s": wall, "first_step_s": rep.compile_time_s,
+               "steps_per_s": rep.steps_per_s,
+               "tokens_per_s": rep.steps_per_s * spec.global_batch * spec.seq_len,
+               "first_loss": losses[0], "last_loss": losses[-1], "losses": losses,
+               "corr_weight_sum": [h["corr_w"] for h in rep.history],
+               "max_memory_allocated_gb": peak_gb, "launches": {kernel: launches[kernel]},
+               "fused_ms_per_step": fused_ms, "fused_bound_ms_per_step": fused_bound}
+        if peak_gb >= 80:
+            raise RuntimeError(f"mesh {name}: peak memory {peak_gb} GB")
+        if spec.strategy == "guided_two_pass" and peak_gb >= peaks["gSSGD"] + param_gb / 2:
+            raise RuntimeError(f"mesh {name}: peak {peak_gb} GB against gSSGD's "
+                               f"{peaks['gSSGD']}: the step's grads outlive its update")
+        res["largest_leaf"] = check_fit_leaf(mods, gu_ref, flush, rep, spec)
+        emit(res)
+        results.append(res)
+        del rep, leaves
+    torch.cuda.empty_cache()
+    return results
+
+
+def mesh_parity(mods, dev, seed):
+    """yi-9b at full width, 4 layers, DC-ASGD (lam 0.04): three steps through
+    the fused kernels and three through their plain versions, from one state
+    on the same batches. After step 1 (one update from the same state and
+    gradients) every param within one bf16 ulp of its value: the kernels'
+    known bar (both compute in f32 and round once). Losses within one bf16
+    ulp of their size: the logits are bf16, a weight one ulp apart moves
+    them by an ulp here and there, and the loss, an f32 mean over 1024
+    tokens, by far less. The plain update runs on the card here and nowhere
+    else on the mesh path."""
+    Trainer, ExperimentSpec, gu_ops, M = mods
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.kernels.guided_update import ref as gu_ref
+    from repro_torch.optim import for_run, get_optimizer
+
+    spec = ExperimentSpec(backend="mesh", arch="yi_9b", reduced=False, mode="asgd",
+                          strategy="dc_asgd", model_overrides=(("n_layers", 4),), lr=1e-2,
+                          workers=4, rho=10, seq_len=128, global_batch=8, steps=3, seed=seed)
+    cfg, gcfg, opt = spec.model_config(), spec.to_guided_config(), get_optimizer("sgd")
+    params, gstate = M.init_train_state(torch.Generator(device=dev).manual_seed(seed + 2), cfg,
+                                        gcfg, opt, 4, strategy=spec.strategy, device=dev)
+    clone = lambda t: tree_map(torch.clone, t)  # noqa: E731
+    start = (clone(params), gstate._replace(score=gstate.score.clone(),
+                                            prev_worker_loss=gstate.prev_worker_loss.clone(),
+                                            prev_avg_loss=gstate.prev_avg_loss.clone(),
+                                            w_stale=clone(gstate.w_stale)))
+    stream = synthetic_lm_batches(cfg.vocab_size, spec.seq_len, spec.global_batch, seed=seed)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+               for _ in range(3)]
+    step = M.build_train_step(cfg, gcfg, opt, for_run("constant", spec.lr, 0, 3),
+                              n_workers=4, strategy=spec.strategy)
+
+    def run(p, g):
+        losses, after1 = [], None
+        for i, b in enumerate(batches):
+            p, g, m = step(p, g, b)
+            losses.append(m["loss"].item())
+            if i == 0:
+                after1 = clone(p)
+        return losses, after1
+
+    n0 = gu_ops.launches["guided_sgd_update"]
+    k_losses, k_after1 = run(params, gstate)
+    kernel_launches = gu_ops.launches["guided_sgd_update"] - n0
+    del params, gstate
+
+    def plain_sgd(w, g, ws, lr, lam, *, out=None):
+        res = gu_ref.guided_sgd_update_ref(w, g, ws, lr, lam)
+        return res if out is None else out.copy_(res)
+
+    n0 = gu_ops.launches["guided_sgd_update"]
+    with mock.patch.object(gu_ops, "guided_sgd_update_raw", plain_sgd):
+        p_losses, p_after1 = run(*start)
+    if gu_ops.launches["guided_sgd_update"] != n0:
+        raise RuntimeError("mesh_parity: the plain run launched the kernel")
+    n_leaves = len(tree_leaves(k_after1))
+    ulps_over, worst = 0, 0.0
+    for a, b in zip(tree_leaves(k_after1), tree_leaves(p_after1)):
+        d = (a.float() - b.float()).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(b.float().abs().clamp(min=2**-126))) - 7)
+        ulps_over += int((d > ulp).sum())
+        worst = max(worst, d.max().item())
+    loss_err = max(abs(a - b) for a, b in zip(k_losses, p_losses))
+    loss_bar = 2.0 ** -8 * max(abs(x) for x in p_losses)
+    res = {"phase": "mesh_parity", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "strategy": spec.strategy, "dc_lambda": gcfg.dc_lambda, "steps": 3,
+           "kernel_losses": k_losses, "plain_losses": p_losses, "loss_max_abs_err": loss_err,
+           "loss_bar": loss_bar, "params_after_step1_max_abs_err": worst,
+           "params_after_step1_past_one_ulp": ulps_over,
+           "kernel_launches": kernel_launches, "param_leaves": n_leaves}
+    if kernel_launches != 3 * n_leaves:
+        raise RuntimeError(f"mesh_parity: {kernel_launches} launches, want {3 * n_leaves}")
+    if ulps_over or loss_err > loss_bar or not np.all(np.isfinite(k_losses)):
+        raise RuntimeError(f"mesh_parity: kernel and plain updates part: {res}")
+    del k_after1, p_after1, start, batches
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh_model_flops(cfg, n_matmul_params, B, S):
+    """Model FLOPs of one training step: 6 per matmul parameter and token
+    (forward and backward; remat's second forward not counted), plus the
+    attention products: 4 * d_head per visible (query, key) pair and head a
+    forward, three times that with the backward."""
+    seen = np.minimum(np.arange(1, S + 1), cfg.sliding_window or S).sum()
+    attn = 3 * 4 * cfg.d_head * cfg.n_heads * int(seen) * B * cfg.n_layers
+    return 6 * n_matmul_params * B * S + attn
+
+
+def busy_union_ms(prof):
+    """Milliseconds in which at least one device activity (kernel, copy,
+    set) of the profile ran: the union of their intervals, so activities
+    that overlap count once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type.name == "CUDA")
+    total, lo, hi = 0.0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            total += 0.0 if hi is None else hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    if hi is not None:
+        total += hi - lo
+    return total / 1e3
+
+
+def profile_mesh(mods, dev, seed, card):
+    """gSSGD at full depth, global batch 16 x seq 1024: one warm-up step, the
+    wall time of 2 steps, then torch.profiler over 2 more: the card's busy
+    share (the union of the device activities' intervals over the profiled
+    steps' wall time), the top kernels, the guided kernels' share of the
+    profiled wall time, and from the unprofiled steps tokens/s and mfu
+    against the bf16 dense peak (989 TFLOP/s, at the power limit printed
+    beside it)."""
+    Trainer, ExperimentSpec, gu_ops, M = mods
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.common import tree_leaves
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.optim import for_run, get_optimizer
+
+    B, S, steps = 16, 1024, 2
+    spec = ExperimentSpec(backend="mesh", arch="yi_9b", reduced=False, mode="ssgd",
+                          strategy="guided_fused", lr=1e-2, workers=4, rho=10, seq_len=S,
+                          global_batch=B, seed=seed)
+    cfg, gcfg, opt = spec.model_config(), spec.to_guided_config(), get_optimizer("sgd")
+    torch.cuda.reset_peak_memory_stats()
+    params, gstate = M.init_train_state(torch.Generator(device=dev).manual_seed(seed), cfg,
+                                        gcfg, opt, 4, strategy=spec.strategy, device=dev)
+    step = M.build_train_step(cfg, gcfg, opt, for_run("constant", spec.lr, 0, 8),
+                              n_workers=4, strategy=spec.strategy)
+    stream = synthetic_lm_batches(cfg.vocab_size, S, B, seed=seed)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(stream).items()}
+               for _ in range(1 + 2 * steps)]
+    params, gstate, m = step(params, gstate, batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[1:1 + steps]:
+        params, gstate, m = step(params, gstate, b)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[1 + steps:]:
+            params, gstate, m = step(params, gstate, b)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    loss = m["loss"].item()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    busy_ms = busy_union_ms(prof) / steps
+    guided_ms = sum(e.self_device_time_total for e in kernels
+                    if "sgd_kernel" in e.key) / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    leaves = tree_leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    n_matmul = n_params - params["embed"]["table"].numel()  # the lookup is no matmul
+    flops = mesh_model_flops(cfg, n_matmul, B, S)
+    res = {"phase": "profile_mesh", "fit": "gSSGD", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "global_batch": B, "seq_len": S, "n_params": n_params, "loss": loss,
+           "wall_ms_per_step": wall_ms, "profiled_wall_ms_per_step": prof_wall_ms,
+           "device_ms_per_step": dev_ms, "device_busy_ms_per_step": busy_ms,
+           "device_busy_share": busy_ms / prof_wall_ms,
+           "guided_ms_per_step": guided_ms, "guided_share_of_step": guided_ms / prof_wall_ms,
+           "tokens_per_s": B * S / (wall_ms / 1e3), "model_flops_per_step": flops,
+           "mfu": flops / (wall_ms / 1e3) / PEAK_FLOPS[torch.bfloat16], "card": card,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "top_kernels": [{"name": e.key[:80], "calls": e.count / steps,
+                            "ms_per_step": e.self_device_time_total / 1e3 / steps}
+                           for e in top]}
+    if not np.isfinite(loss):
+        raise RuntimeError(f"profile_mesh: loss {loss}")
+    del params, gstate, batches, leaves, m
+    torch.cuda.empty_cache()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -940,6 +1382,22 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
+    # the mesh trainer: five fits, each with its largest leaf held against
+    # the plain update, then the kernel-vs-plain run and the profile
+    from repro_torch.engine import mesh as mesh_mod
+
+    mesh_mods = (Trainer, ExperimentSpec, gu_ops, mesh_mod)
+    t0 = time.perf_counter()
+    mesh_runs = mesh_main_path(mesh_mods, counters[:2], gu_ref, flush, args.seed)
+    emit(mesh_parity(mesh_mods, dev, args.seed))
+    emit(profile_mesh(mesh_mods, dev, args.seed, card))
+    mesh_launches = {}
+    for r in mesh_runs:
+        for k, n in r["launches"].items():
+            mesh_launches[k] = mesh_launches.get(k, 0) + n
+    emit({"phase": "mesh_total", "seconds": time.perf_counter() - t0,
+          "launches": mesh_launches})
+
     # one entry per kernel and serve path: that path's launches beside the
     # numbers measured at the shape that path gives the kernel
     entries = []
@@ -966,13 +1424,17 @@ def main(argv=None) -> int:
                             "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
     for name, (replaces, _) in GUIDED.items():
         c = main_guided[name]
-        entries.append({"name": name, "variant": "simt", "route": "cuda", "source": GUIDED_SRC,
-                        "replaces": replaces, "path": "train", "shape": c["shape"],
-                        "launches": train_launches[name],
-                        "max_abs_err": c["max_abs_err"], "ms": c["ms"], "v1_ms": None,
-                        "plain_ms": c["plain_ms"],
-                        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-                        "library_ms": None})
+        runs = [("train", None, c, train_launches[name])]
+        runs += [("mesh", r["fit"], r["largest_leaf"], r["launches"][name])
+                 for r in mesh_runs if name in r["launches"]]
+        for path, fit, c, launches in runs:
+            entries.append({"name": name, "variant": "simt", "route": "cuda",
+                            "source": GUIDED_SRC, "replaces": replaces, "path": path,
+                            "fit": fit, "shape": c["shape"], "dtype": c["dtype"],
+                            "launches": launches, "max_abs_err": c["max_abs_err"],
+                            "ms": c["ms"], "v1_ms": None, "plain_ms": c["plain_ms"],
+                            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                            "library_ms": None})
     print(card, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -94,10 +94,12 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
 
-    # attention implementation of the reference ("xla" | "pallas"). The port
-    # has one policy instead: kernels on CUDA tensors, plain torch on the CPU.
+    # attention of the training forward: "xla" | "xla_chunked" (plain torch
+    # ops, differentiable) | "pallas" (the flash_attention kernel, which has
+    # no backward). The serve paths always run the kernels.
     attn_impl: str = "xla"
-    # remat policy of the reference's scanned layer stack (unused at serve)
+    # remat policy of the layer stack in training: "full" checkpoints every
+    # super-block (recomputed in the backward), "none" keeps activations
     remat: str = "full"
 
     def __post_init__(self):

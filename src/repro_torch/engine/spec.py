@@ -1,16 +1,19 @@
 """`ExperimentSpec` — the fields of `repro.engine.spec.ExperimentSpec` that
-the sim and scan backends read, with the reference's names, defaults and
-construction-time validation.
+the sim, scan and mesh backends read, with the reference's names, defaults
+and construction-time validation.
 
     backend="sim"  — the numpy event-driven parameter server
                      (`PSConfig` + `train_ps`, repro_torch.core.parameter_server);
     backend="scan" — the torch arrival loop (repro_torch.engine.delaysim):
                      the same trajectories as the sim to float64 round-off,
-                     `n_seeds` seeds batched, delay topologies via `topology`.
+                     `n_seeds` seeds batched, delay topologies via `topology`;
+    backend="mesh" — the strategy-hooked transformer trainer
+                     (repro_torch.engine.mesh / trainloop) on one card.
 
-backend="mesh" and backend="dist" are accepted here, as in the reference,
-and refused by the Trainer: they are not ported yet, and neither are their
-fields (mesh, dist, checkpoint and resilience knobs).
+backend="dist" is accepted here, as in the reference, and refused by the
+Trainer: it is not ported yet, and neither are its fields. `ckpt_dir`,
+`ckpt_every` and `sentinel` are validated as the reference validates them
+and refused by the mesh fit (checkpointing and resilience come later).
 """
 from __future__ import annotations
 
@@ -42,6 +45,13 @@ TOPOLOGIES = {
 }
 
 _DEFAULT_TOPOLOGY = {"seq": "seq", "ssgd": "barrier", "asgd": "exp"}
+
+# mesh-backend lr schedules (resolved by repro_torch.optim.schedules.for_run)
+SCHEDULES = ("constant", "wsd", "cosine")
+
+# divergence-sentinel screening levels of the reference (not ported: the
+# mesh fit refuses any but "")
+SENTINELS = ("", "finite", "full")
 
 # algorithm names as printed in the paper's tables -> (mode, strategy, optimizer)
 ALGOS = {
@@ -79,7 +89,8 @@ def needs_stale_message(strategy: str, why: str, mode: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
-    """One experiment of the paper's algorithm family (sim and scan fields)."""
+    """One experiment of the paper's algorithm family (sim, scan and mesh
+    fields)."""
 
     backend: str = "mesh"          # mesh | sim | scan | dist
     # ------------------------------------------------- shared algorithm knobs
@@ -98,15 +109,35 @@ class ExperimentSpec:
     eps: float = 1e-8
     topology: str = ""             # scan: TOPOLOGIES key ("" -> mode default)
     n_seeds: int = 1               # scan: batch seeds seed..seed+n_seeds-1
-    # -------------------------------------------- strategy (GuidedConfig) knobs
-    staleness: int = 0
+    # ------------------------------------------------------------ mesh knobs
+    arch: str = "yi_9b"
+    reduced: bool = True
+    model_overrides: tuple = ()    # (("n_layers", 2), ...) applied to the cfg
+    steps: int = 100
+    seq_len: int = 128
+    global_batch: int = 8
+    schedule: str = "constant"     # constant | wsd | cosine
+    warmup: int = 10
+    mesh: str = "local"            # local (the others are not ported)
+    workers: int = 0               # paper's c; 0 -> data shards of the mesh (1)
+    micro: int = 1                 # gradient-accumulation microbatches
+    staleness: int = 0             # asgd: w_stale refresh period (0 -> rho)
+    chunk_steps: int = 1           # K steps per dispatch (1 -> per-step loop)
+    prefetch: bool = False         # stage the next batch block on a thread
     dc_lambda: float = 0.04
     correction_scale: float = 1.0
     magnitude_weight: float = 0.1
+    # ----------------------------- checkpointing / resilience (not ported)
+    ckpt_dir: str = ""
+    ckpt_every: int = 0
+    sentinel: str = ""
 
     def __post_init__(self):
         assert self.backend in BACKENDS, self.backend
         assert self.mode in MODES, self.mode
+        if self.schedule not in SCHEDULES:
+            raise ValueError(
+                f"unknown schedule {self.schedule!r}; known: {', '.join(SCHEDULES)}")
         if self.optimizer not in OPTIMIZERS:
             raise ValueError(
                 f"unknown optimizer {self.optimizer!r}; known: {', '.join(OPTIMIZERS)}")
@@ -115,6 +146,16 @@ class ExperimentSpec:
                 f"optimizer {self.optimizer!r} has no numpy server apply rule "
                 f"(backend={self.backend!r} supports {', '.join(SIM_OPTIMIZERS)}); "
                 f"use backend='mesh' or backend='scan' for momentum/adam")
+        if self.ckpt_every < 0:
+            raise ValueError(f"ckpt_every must be >= 0 (got {self.ckpt_every})")
+        if self.ckpt_every and not self.ckpt_dir:
+            raise ValueError(
+                f"ckpt_every={self.ckpt_every} needs ckpt_dir (where should "
+                f"the snapshots go?)")
+        if self.chunk_steps < 1:
+            raise ValueError(
+                f"chunk_steps must be >= 1 (got {self.chunk_steps}); 1 runs "
+                f"the per-step loop, K > 1 fuses K steps per dispatch")
         # strategy/mode compatibility fails here, at construction, with the
         # registry's message — not mid-fit.
         why = _STALE_REQUIRED.get(self.strategy)
@@ -143,6 +184,15 @@ class ExperimentSpec:
                     f"topology {self.topology!r} is defined for mode(s) "
                     f"{TOPOLOGIES[self.topology]}, got mode={self.mode!r}"
                 )
+        if self.sentinel not in SENTINELS:
+            raise ValueError(
+                f"unknown sentinel {self.sentinel!r}; known: "
+                f"{', '.join(repr(s) for s in SENTINELS)}")
+        if self.sentinel and self.backend not in ("mesh", "dist"):
+            raise ValueError(
+                f"sentinel={self.sentinel!r} screens the mesh carry or the "
+                f"dist chief's push path (backend={self.backend!r} has "
+                f"neither)")
 
     @property
     def resolved_topology(self) -> str:
@@ -204,6 +254,17 @@ class ExperimentSpec:
             correction_scale=self.correction_scale,
             magnitude_weight=self.magnitude_weight,
         )
+
+    def model_config(self):
+        """Resolve arch + reduced + overrides to a ModelConfig (mesh backend)."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(self.arch)
+        if self.reduced:
+            cfg = cfg.reduced()
+        if self.model_overrides:
+            cfg = cfg.replace(**dict(self.model_overrides))
+        return cfg
 
     @classmethod
     def for_algo(cls, name: str, **kw) -> "ExperimentSpec":

@@ -5,11 +5,17 @@
     report = Trainer.from_spec(spec).fit((Xtr, ytr, n_classes, Xte, yte))
     report.val_loss, report.history, report.steps_per_s
 
-backend="scan" runs the torch arrival loop (repro_torch.engine.delaysim) on
+    spec = ExperimentSpec(backend="mesh", arch="yi_9b", reduced=False,
+                          strategy="guided_fused", steps=20)
+    report = Trainer.from_spec(spec).fit()          # synthetic LM stream
+    report.final_loss, report.history, report.steps_per_s
+
+backend="scan" runs the torch arrival loop (repro_torch.engine.delaysim) and
+backend="mesh" the transformer trainer (repro_torch.engine.trainloop) on
 `device` ("cuda" unless the caller asks for the CPU; a missing card raises,
 there is no silent CPU run). backend="sim" runs the numpy parameter server
-(`train_ps`) on the host, whatever `device` says. backend="mesh" and
-backend="dist" are not ported yet and raise NotImplementedError.
+(`train_ps`) on the host, whatever `device` says. backend="dist" is not
+ported yet and raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -27,20 +33,29 @@ from repro_torch.engine.strategies import get_compensator
 
 @dataclasses.dataclass
 class Report:
-    """Result of a Trainer.fit run. history: per-arrival (t, avg_err) pairs
-    (scan with n_seeds > 1: avg_err is an (n_seeds,) array)."""
+    """Result of a Trainer.fit run. history: per-step dicts on the mesh
+    backend ({step, loss, worker_var, corr_w}); per-arrival (t, avg_err)
+    pairs on sim/scan (scan with n_seeds > 1: avg_err is an (n_seeds,) array)."""
 
     backend: str
     spec: ExperimentSpec
     history: list
     final: dict
-    model: Any = None          # LogisticRegression (scan n_seeds>1: a list of them)
+    model: Any = None          # sim/scan: LogisticRegression (scan n_seeds>1: a
+                               # list of them); mesh: the final params
+    state: Any = None          # mesh: the final GuidedState
     wall_time_s: float = 0.0   # wall time of fit()
-    steps_per_s: float = 0.0   # server steps (x seeds on scan) per second of fit()
-    n_steps: int = 0           # server steps this fit ran (per seed), from the schedule
+    steps_per_s: float = 0.0   # mesh: warm steps / warm_time_s; sim/scan: server
+                               # steps (x seeds on scan) per second of fit()
+    compile_time_s: float = 0.0  # mesh: the first dispatch of each chunk size
+    warm_steps: int = 0        # mesh: steps outside those dispatches
+    warm_time_s: float = 0.0   # mesh: wall time of the warm dispatches alone
+    n_steps: int = 0           # server steps this fit ran (per seed)
 
     @property
     def final_loss(self) -> Optional[float]:
+        if self.backend == "mesh":
+            return self.final.get("loss")
         return self.final.get("train_loss")
 
     @property
@@ -58,18 +73,18 @@ class Trainer:
     the device; data preparation and training happen inside fit()."""
 
     def __init__(self, spec: ExperimentSpec, device="cuda"):
-        if spec.backend in ("mesh", "dist"):
+        if spec.backend == "dist":
             raise NotImplementedError(
                 f"backend={spec.backend!r} is not yet ported to repro_torch; "
-                f"ported: 'sim', 'scan'")
+                f"ported: 'sim', 'scan', 'mesh'")
         self.spec = spec
         self.device = torch.device(device)
         self.strategy = None
-        if spec.backend == "scan":
+        if spec.backend in ("scan", "mesh"):
             if self.device.type == "cuda" and not torch.cuda.is_available():
                 raise RuntimeError(
-                    "device='cuda' but no CUDA device is available; pass "
-                    "device='cpu' to run the scan backend on the CPU")
+                    f"device='cuda' but no CUDA device is available; pass "
+                    f"device='cpu' to run the {spec.backend} backend on the CPU")
             self.strategy = get_compensator(spec.strategy, spec.to_guided_config())
         else:
             spec.to_ps_config()  # validates mode/strategy for the simulator
@@ -79,11 +94,30 @@ class Trainer:
         return cls(spec, device=device)
 
     def fit(self, data=None, steps: Optional[int] = None,
-            on_step: Optional[Callable] = None, resume: bool = False) -> Report:
-        """Run the experiment. `data` is (X, y, n_classes[, Xtest, ytest]).
-        `steps`, `on_step` and `resume` belong to the mesh backend and are
-        refused here, as the reference refuses them on sim/scan."""
+            on_step: Optional[Callable] = None, keep_history: bool = True,
+            resume: bool = False) -> Report:
+        """Run the experiment.
+
+        sim/scan: `data` is (X, y, n_classes[, Xtest, ytest]); `steps`,
+        `on_step` and `resume` belong to the mesh backend and are refused,
+        as the reference refuses them.
+        mesh: `data` is an iterable of batch dicts (None: the synthetic LM
+        stream); `steps` overrides spec.steps; `on_step(step, metrics,
+        params)` fires after every dispatch (see repro_torch.engine.trainloop);
+        keep_history=False keeps only the final step's record."""
         t0 = time.perf_counter()
+        if self.spec.backend == "mesh":
+            from repro_torch.engine import trainloop
+
+            report = trainloop.fit(self.spec, self.strategy, data=data, steps=steps,
+                                   on_step=on_step, keep_history=keep_history,
+                                   resume=resume, device=self.device)
+            report.wall_time_s = time.perf_counter() - t0
+            if report.warm_steps > 0 and report.warm_time_s > 0:
+                report.steps_per_s = report.warm_steps / report.warm_time_s
+            else:
+                report.steps_per_s = report.n_steps / max(report.wall_time_s, 1e-9)
+            return report
         if steps is not None or on_step is not None:
             raise ValueError(
                 "steps/on_step apply to the mesh backend; the sim/scan "

@@ -3,7 +3,9 @@
 Device policy (replaces the reference's `default_interpret`): a wrapper given
 CUDA tensors launches its kernel, or raises; given CPU tensors it runs the
 kernel's plain PyTorch version (`ref.py` beside it). There is no fallback
-from a failed launch to the plain version.
+from a failed launch to the plain version. No kernel has a backward (nor
+has the TPU kernel it replaces): a wrapper refuses CUDA inputs that autograd
+would have to differentiate through it (`refuse_autograd`).
 
 Build: at first use on a card, every `kernels/*/csrc/*.cu` is compiled by
 `nvcc` for sm_90a (one process per source, all started together), linked
@@ -43,6 +45,18 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
     if kinds == {"cpu"}:
         return False
     raise ValueError(f"tensors must all be on cuda or all on cpu, got {sorted(kinds)}")
+
+
+def refuse_autograd(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and any input requires grad: the kernel's
+    output would be silently cut from the graph and every gradient through
+    it lost. Call it on the kernel's path, before the launch."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward (nor has the TPU kernel it "
+            f"replaces), so autograd cannot differentiate through it; call it under "
+            f"torch.no_grad() or on tensors that do not require grad (training "
+            f"attention: cfg.attn_impl='xla')")
 
 
 def sources() -> list:

@@ -71,6 +71,7 @@ def run_variant(q, k, v, *, causal: bool = True, window: int = 0, variant: str):
     _check(q, k, v)
     if not kernels.use_kernel(q, k, v):
         raise ValueError("run_variant launches a kernel: it takes CUDA tensors only")
+    kernels.refuse_autograd(f"flash_attention ({variant})", q, k, v)
     B, S, H, dh = q.shape
     if variant not in launches_by_variant:
         raise ValueError(f"unknown flash_attention variant {variant!r}")

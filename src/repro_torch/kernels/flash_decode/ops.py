@@ -65,6 +65,7 @@ def flash_decode(q, k_cache, v_cache, cache_len):
     _check(q, k_cache, v_cache, cache_len)
     if not kernels.use_kernel(q, k_cache, v_cache, cache_len):
         return decode_ref(q, k_cache, v_cache, cache_len).to(q.dtype)
+    kernels.refuse_autograd("flash_decode", q, k_cache, v_cache)
     B, _, H, dh = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     if cache_len.dtype != torch.int32:

@@ -30,6 +30,13 @@
 // nvcc never contracts into an FMA, so each rounding point is the
 // reference's and the f64 results equal the plain PyTorch version's bit for
 // bit wherever the scalars do.
+//
+// In place: an output may be its input (the mesh trainer writes each leaf's
+// new weights over the old ones, and the new accumulators over theirs, and
+// under SSGD w_stale is w itself). Each thread reads element i of every
+// input before it writes element i of any output, and no two threads touch
+// one element, so aliasing is safe; the pointers carry no __restrict__,
+// which would let the compiler assume otherwise.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -71,8 +78,7 @@ __device__ __forceinline__ C compensate(C g, C w, C ws, C lam) {
 }
 
 template <typename T, typename C = typename Compute<T>::type>
-__global__ void sgd_kernel(const T* __restrict__ w, const T* __restrict__ g,
-                           const T* __restrict__ ws, T* __restrict__ out, long long n, C lr,
+__global__ void sgd_kernel(const T* w, const T* g, const T* ws, T* out, long long n, C lr,
                            C lam) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
@@ -83,10 +89,8 @@ __global__ void sgd_kernel(const T* __restrict__ w, const T* __restrict__ g,
 }
 
 template <typename T, bool NESTEROV, typename C = typename Compute<T>::type>
-__global__ void momentum_kernel(const T* __restrict__ w, const T* __restrict__ g,
-                                const T* __restrict__ ws, const C* __restrict__ m,
-                                T* __restrict__ out, C* __restrict__ m_out, long long n, C lr,
-                                C lam, C beta) {
+__global__ void momentum_kernel(const T* w, const T* g, const T* ws, const C* m, T* out,
+                                C* m_out, long long n, C lr, C lam, C beta) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const C wc = to_c(w[i]);
@@ -100,10 +104,8 @@ __global__ void momentum_kernel(const T* __restrict__ w, const T* __restrict__ g
 }
 
 template <typename T, typename C = typename Compute<T>::type>
-__global__ void rmsprop_kernel(const T* __restrict__ w, const T* __restrict__ g,
-                               const T* __restrict__ ws, const C* __restrict__ r,
-                               T* __restrict__ out, C* __restrict__ r_out, long long n, C lr,
-                               C lam, C beta, C eps) {
+__global__ void rmsprop_kernel(const T* w, const T* g, const T* ws, const C* r, T* out,
+                               C* r_out, long long n, C lr, C lam, C beta, C eps) {
   const C omb = sub(C(1), beta);  // 1.0 - beta from the rounded beta, as kernel.py:125
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
@@ -116,11 +118,9 @@ __global__ void rmsprop_kernel(const T* __restrict__ w, const T* __restrict__ g,
 }
 
 template <typename T, typename C = typename Compute<T>::type>
-__global__ void adam_kernel(const T* __restrict__ w, const T* __restrict__ g,
-                            const T* __restrict__ ws, const C* __restrict__ m,
-                            const C* __restrict__ v, T* __restrict__ out, C* __restrict__ m_out,
-                            C* __restrict__ v_out, long long n, C lr, C lam, C b1, C omb1,
-                            C b2, C omb2, C bc1, C bc2, C eps) {
+__global__ void adam_kernel(const T* w, const T* g, const T* ws, const C* m, const C* v,
+                            T* out, C* m_out, C* v_out, long long n, C lr, C lam, C b1,
+                            C omb1, C b2, C omb2, C bc1, C bc2, C eps) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const C wc = to_c(w[i]);

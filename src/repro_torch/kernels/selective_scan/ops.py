@@ -44,6 +44,7 @@ def selective_scan(x, dt, A, Bc, Cc, h0=None):
     given = [a for a in (x, dt, A, Bc, Cc, h0) if a is not None]
     if not kernels.use_kernel(*given):
         return selective_scan_ref(x, dt, A, Bc, Cc, h0)
+    kernels.refuse_autograd("selective_scan", *given)
     bad = sorted({str(a.dtype) for a in given if a.dtype != torch.float32})
     if bad:
         raise TypeError(f"selective_scan kernel takes float32 only, got {bad}")

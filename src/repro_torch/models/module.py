@@ -13,21 +13,12 @@ from typing import Callable
 
 import torch
 
-
-def tree_map(fn: Callable, tree):
-    """Apply `fn` to every tensor leaf of a nested dict."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+from repro_torch.common import tree_map  # (re-exported: serve, transformer)
 
 
 def tree_copy_(dst, src) -> None:
     """dst[...] = src for every leaf pair of two nested dicts of one structure."""
-    if isinstance(dst, dict):
-        for k in dst:
-            tree_copy_(dst[k], src[k])
-    else:
-        dst.copy_(src)
+    tree_map(lambda d, s_: d.copy_(s_), dst, src)
 
 
 # ---------------------------------------------------------------- initializers

@@ -2,6 +2,7 @@
 
 API:
   model_init(gen, cfg, device)                        -> params (nested dict)
+  forward_train(params, batch, cfg)                   -> (per_example_loss, aux, logits)
   init_caches(cfg, batch, total_len, device)          -> caches
   prefill(params, batch, cfg, total_len, prompt_lens, caches) -> (last logits, caches)
   decode_step(params, caches, tokens, t, cfg)         -> (logits, caches)
@@ -20,6 +21,13 @@ and Mamba layers start from zero states, whatever the given caches held.
 states of every row; both return the same tensors. Pass views of a larger
 pool (e.g. one batch row) to prefill straight into it.
 
+The serve paths (`prefill`, `decode_step`) run under no_grad and ask for the
+attention kernels explicitly (impl "pallas"); `forward_train` is
+differentiable and attends with `cfg.attn_impl` ("xla" by default, as the
+reference trains). With `cfg.remat == "full"` each super-block of the
+training forward is checkpointed and recomputed in the backward, as the
+reference's `jax.checkpoint` of its scan body.
+
 Not yet ported: MoE, xLSTM, audio/VLM frontends and the int8 KV cache; those
 raise NotImplementedError (jamba is served with `moe=None`).
 """
@@ -28,6 +36,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -146,7 +155,7 @@ def _attn_cache_len(cfg, caches) -> int:
 # ------------------------------------------------------------- block apply
 
 
-def _attn_layer(lp, h, cfg, rope, cache, slots):
+def _attn_layer(lp, h, cfg, rope, cache, slots, impl):
     """The attention mixer at prefill (slots None) or decode. `cache` ({k, v}
     of this layer, (B, S_c, K, dh)) is written in place: at decode (`slots`
     = (rows, ring slot, cache_len) of the step) slot t mod S_c of each row;
@@ -160,7 +169,7 @@ def _attn_layer(lp, h, cfg, rope, cache, slots):
         cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
         out = L.decode_attention(q, cache["k"], cache["v"], clen)
         return out.reshape(B, S, -1) @ lp["mixer"]["wo"]
-    att, (k, v) = L.attn_apply(lp["mixer"], h, cfg, rope=rope)
+    att, (k, v) = L.attn_apply(lp["mixer"], h, cfg, rope=rope, impl=impl)
     if cache is not None:
         s_c = cache["k"].shape[1]
         S = k.shape[1]
@@ -187,31 +196,34 @@ def _mamba_layer(lp, h, cfg, cache, decode: bool):
     return y
 
 
-def layer_apply(lp, x, cfg, i, rope, cache=None, slots=None):
+def layer_apply(lp, x, cfg, i, rope, cache, slots, impl):
     """Layer i of a super-block. `rope` is this pass's (cos, sin) tables;
-    `slots` is None at prefill, the decode step's (rows, ring slot,
-    cache_len) at decode. Returns x."""
+    `slots` is None at prefill and in training, the decode step's (rows,
+    ring slot, cache_len) at decode; `impl` the full-sequence attention's.
+    Returns x."""
     h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
     if mixer_kind(cfg, i) == "attn":
-        x = x + _attn_layer(lp, h, cfg, rope, cache, slots)
+        x = x + _attn_layer(lp, h, cfg, rope, cache, slots, impl)
     else:
         x = x + _mamba_layer(lp, h, cfg, cache, decode=slots is not None)
     h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
     return x + L.ffn_apply(lp["ffn"], h)
 
 
-def block_apply(bp, x, cfg, rope, caches=None, slots=None):
+def block_apply(bp, x, cfg, rope, caches, slots, impl):
     """One super-block: its `period` layers in order."""
     for i in range(period(cfg)):
         x = layer_apply(bp[f"l{i}"], x, cfg, i, rope,
-                        None if caches is None else caches[f"l{i}"], slots)
+                        None if caches is None else caches[f"l{i}"], slots, impl)
     return x
 
 
-def _stack_apply(params, x, cfg, positions, caches=None, t=None):
+def _stack_apply(params, x, cfg, positions, *, impl, caches=None, t=None, remat=False):
     """The stack as a Python loop over the stacked super-block dim. What
     every layer shares (RoPE tables, the decode step's ring slots) is built
-    once, and the stacked leaves are split into per-block views once."""
+    once, and the stacked leaves are split into per-block views once
+    (`unbind`, whose backward stacks each leaf's gradient once). `remat`
+    checkpoints each super-block (training only)."""
     rope = L.rope_tables(positions, cfg.d_head, cfg.rope_theta)
     slots = None
     if t is not None:
@@ -223,7 +235,11 @@ def _stack_apply(params, x, cfg, positions, caches=None, t=None):
     for j in range(n_super(cfg)):
         bp = tree_map(lambda a, j=j: a[j], blocks)
         cache = None if caches is None else tree_map(lambda c, j=j: c[j], block_caches)
-        x = block_apply(bp, x, cfg, rope, cache, slots)
+        if remat:
+            x = checkpoint(block_apply, bp, x, cfg, rope, cache, slots, impl,
+                           use_reentrant=False)
+        else:
+            x = block_apply(bp, x, cfg, rope, cache, slots, impl)
     return x
 
 
@@ -236,6 +252,30 @@ def _embed(params, tokens, cfg):
     return L.embed_lookup(params["embed"], tokens).to(cfg.dtype)
 
 
+def _embed_inputs(params, batch, cfg):
+    """Token embeddings of `batch["tokens"]` in the compute dtype (the audio
+    and VLM frontends of the reference are not ported: check_ported)."""
+    if "patches" in batch:
+        raise NotImplementedError("VLM patch embeddings are not yet ported")
+    return _embed(params, batch["tokens"], cfg)
+
+
+def forward_train(params, batch, cfg):
+    """Returns (per_example_loss (B,) f32, aux (), logits (B,S,V)): the
+    differentiable full-sequence pass the mesh trainer takes gradients of.
+    `batch` holds "tokens" and "labels" (B,S) and optionally "mask". aux is
+    the MoE router loss of the reference, zero for the ported archs."""
+    check_ported(cfg)
+    x = _embed_inputs(params, batch, cfg)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    x = _stack_apply(params, x, cfg, positions, impl=cfg.attn_impl,
+                     remat=cfg.remat == "full")
+    logits = _head(params, x, cfg)
+    per_ex = L.per_example_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return per_ex, torch.zeros((), dtype=torch.float32, device=x.device), logits
+
+
 @torch.no_grad()
 def prefill(params, batch, cfg, total_len: int = 0, prompt_lens=None, caches=None):
     """Returns (last-position logits (B,V), caches). `batch["tokens"]` is
@@ -243,15 +283,12 @@ def prefill(params, batch, cfg, total_len: int = 0, prompt_lens=None, caches=Non
     written in place). `prompt_lens` ((B,) host ints) gathers each row's logits at
     its last real position for right-padded prompts."""
     check_ported(cfg)
-    if "patches" in batch:
-        raise NotImplementedError("VLM patch embeddings are not yet ported")
-    tokens = batch["tokens"]
-    x = _embed(params, tokens, cfg)
+    x = _embed_inputs(params, batch, cfg)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     if caches is None:
         caches = init_caches(cfg, B, max(total_len, S), x.device)
-    x = _stack_apply(params, x, cfg, positions, caches=caches)
+    x = _stack_apply(params, x, cfg, positions, caches=caches, impl="pallas")
     if prompt_lens is None:
         x_last = x[:, -1:]
     else:  # host ints: slicing needs no host->device copy
@@ -271,5 +308,5 @@ def decode_step(params, caches, tokens, t, cfg):
     tv = torch.as_tensor(t, dtype=torch.int32, device=x.device)
     if tv.ndim == 0:
         tv = tv.expand(B)
-    x = _stack_apply(params, x, cfg, tv[:, None], caches=caches, t=tv)
+    x = _stack_apply(params, x, cfg, tv[:, None], caches=caches, t=tv, impl="pallas")
     return _head(params, x, cfg)[:, 0], caches

@@ -173,3 +173,130 @@ def test_ragged_lengths_on_cpu_match_dense_reference():
     np.testing.assert_allclose(out.numpy(), attention_ref(q, k, v, causal=True, window=30).numpy(),
                                atol=F32_ATOL)
     assert out.shape == (1, 100, 4, 32)
+
+
+# ------------------------------------------- training attention (attn_impl)
+
+
+@pytest.mark.parametrize("impl", ["xla", "xla_chunked"])
+@pytest.mark.parametrize("S,causal,window", [(64, True, 0), (64, False, 0), (64, True, 16),
+                                             (20, True, 16), (48, True, 16)])
+def test_training_attention_and_its_gradient_match_jax(impl, S, causal, window):
+    """The reference's XLA formulations, ported as plain torch ops: output
+    and autograd's gradient against jax.grad of `layers.attention`, f32, at
+    the reference's 3e-5 bar. (64, 16) and (48, 16) take the blocked
+    sliding-window path, (20, 16) the masked full one."""
+    import jax
+
+    from repro.models import layers as JL
+    from repro_torch.models import layers as L
+
+    B, H, K, dh = 2, 4, 2, 32
+    q, k, v, ct = _inputs(7, (B, S, H, dh), (B, S, K, dh), (B, S, K, dh), (B, S, H, dh))
+
+    def jloss(q_, k_, v_):
+        out = JL.attention(q_, k_, v_, n_kv_heads=K, causal=causal, window=window, impl=impl)
+        return (out * ct).sum(), out
+
+    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = L.attention(tq, tk, tv, causal=causal, window=window, impl=impl)
+    (out * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), rtol=0, atol=F32_ATOL)
+    for t, g in zip((tq, tk, tv), jgrads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=0, atol=F32_ATOL)
+
+
+def test_attention_dispatch_reaches_the_kernel_only_for_pallas(monkeypatch):
+    """"xla" never touches the kernel's wrapper (nor its plain version, which
+    stays off the training path); "pallas" goes through it; anything else
+    raises."""
+    from repro_torch.models import layers as L
+
+    calls = []
+    monkeypatch.setattr(L, "flash_attention",
+                        lambda *a, **kw: calls.append(kw) or attention_ref(*a, **kw))
+    monkeypatch.setattr(fa_ops, "attention_ref", lambda *a, **kw: pytest.fail("ref reached"))
+    q, k, v = (torch.from_numpy(a) for a in _inputs(8, (1, 32, 4, 32), (1, 32, 2, 32),
+                                                     (1, 32, 2, 32)))
+    L.attention(q, k, v, causal=True, window=0, impl="xla")
+    assert calls == []
+    L.attention(q, k, v, causal=True, window=8, impl="pallas")
+    assert calls == [{"causal": True, "window": 8}]
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        L.attention(q, k, v, impl="flash")
+
+
+def test_serve_paths_ask_for_the_kernel_whatever_attn_impl_says(monkeypatch):
+    """prefill runs the flash_attention wrapper even though the config's
+    attn_impl (the training path's) is "xla", and decode_step flash_decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("yi_9b").reduced()
+    assert cfg.attn_impl == "xla"
+    seen = {"fa": 0, "fd": 0}
+    fa, fd = L.flash_attention, L.flash_decode
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            seen[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(L, "flash_attention", count("fa", fa))
+    monkeypatch.setattr(L, "flash_decode", count("fd", fd))
+    params = T.model_init(torch.Generator().manual_seed(0), cfg, "cpu")
+    _, caches = T.prefill(params, {"tokens": torch.zeros((1, 8), dtype=torch.long)}, cfg,
+                          total_len=10)
+    T.decode_step(params, caches, torch.zeros((1, 1), dtype=torch.long), 8, cfg)
+    assert seen == {"fa": cfg.n_layers, "fd": cfg.n_layers}
+
+
+def test_forward_train_matches_jax():
+    """The training forward's per-example losses (B,), f32 reduced yi-9b,
+    from the reference's weights: the summation-order bar 1e-5, as the mesh
+    parity tests hold it; with a mask too."""
+    import jax
+
+    from repro.configs import get_config as jget
+    from repro.models import transformer as JT
+    from repro.models.module import split_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax
+
+    jcfg, cfg = jget("yi_9b").reduced(), get_config("yi_9b").reduced()
+    jparams = split_params(JT.model_init(jax.random.PRNGKey(0), jcfg))[0]
+    params = params_from_jax(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    rng = np.random.default_rng(9)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (3, 24)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, (3, 24)).astype(np.int32),
+             "mask": (rng.random((3, 24)) < 0.7).astype(np.float32)}
+    for keys in (("tokens", "labels"), ("tokens", "labels", "mask")):
+        jb = {k: jnp.asarray(batch[k]) for k in keys}
+        tb = {k: torch.from_numpy(batch[k]) for k in keys}
+        jper, _, _ = JT.forward_train(jparams, jb, jcfg)
+        per, aux, logits = T.forward_train(params, tb, cfg)
+        assert per.shape == (3,) and per.dtype == torch.float32 and float(aux) == 0.0
+        assert logits.shape == (3, 24, cfg.vocab_size)
+        np.testing.assert_allclose(per.detach().numpy(), np.asarray(jper), rtol=0, atol=1e-5)
+
+
+def test_cross_entropy_matches_jax():
+    """The mean token loss, with and without a mask, f32, at 1e-5."""
+    from repro.models import layers as JL
+    from repro_torch.models import layers as L
+
+    rng = np.random.default_rng(10)
+    logits = (3 * rng.standard_normal((2, 7, 50))).astype(np.float32)
+    labels = rng.integers(0, 50, (2, 7)).astype(np.int32)
+    mask = (rng.random((2, 7)) < 0.6).astype(np.float32)
+    for m in (None, mask):
+        a = L.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
+                            None if m is None else torch.from_numpy(m))
+        b = JL.cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                             None if m is None else jnp.asarray(m))
+        np.testing.assert_allclose(float(a), float(b), rtol=0, atol=1e-5)

@@ -34,7 +34,11 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                  "repro_torch.kernels.selective_scan.ops",
                  "repro_torch.kernels.selective_scan.ref",
                  "repro_torch.configs.jamba_1_5_large_398b", "repro_torch.kernels.bench",
-                 "repro_torch.kernels.timing"):
+                 "repro_torch.kernels.timing", "repro_torch.common",
+                 "repro_torch.core.consistency", "repro_torch.optim",
+                 "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
+                 "repro_torch.engine.mesh", "repro_torch.engine.trainloop",
+                 "repro_torch.data.tokens", "repro_torch.data.prefetch"):
         assert must in mods, must
     code = (
         "import importlib, sys\n"

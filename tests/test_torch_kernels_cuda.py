@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels on the card, against their plain versions:
 flash_attention (its tensor-core and SIMT kernels), flash_decode, the four
-guided-update kernels and the
-selective scan; a short scan-trainer fit on the card against the same fit on
-the CPU; and the reduced hybrid (jamba) stack through its kernels.
+guided-update kernels (in place too, at a full-width yi-9b leaf) and the
+selective scan; every wrapper's refusal of inputs that require grad; a short
+scan-trainer fit and a short mesh-trainer fit on the card against the same
+fits on the CPU; and the reduced hybrid (jamba) stack through its kernels.
 
 The `cuda` fixture skips them without an NVIDIA GPU (the kernels have no
 CPU mode). This file imports no JAX, so it runs on a card machine without the
@@ -10,6 +11,8 @@ reference installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_kernels_cuda.py
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -275,6 +278,123 @@ def test_guided_update_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         wh = w.half()
         ops.guided_sgd_update_raw(wh, wh, wh, 0.1, 0.0)
+
+
+def test_every_kernel_wrapper_refuses_inputs_that_require_grad(cuda):
+    """No kernel has a backward: with grad mode on, a CUDA input that
+    requires grad raises (its output would be cut from the graph); under
+    no_grad the same call launches."""
+    from repro_torch.kernels.guided_update import ops
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+
+    q, k, v = _attention_inputs(cuda, 64, 8, 2, 64, torch.bfloat16)
+    q32 = q.float()
+    calls = {
+        "flash_attention (wgmma)": lambda r: fa_ops.flash_attention(r(q), k, v),
+        "flash_attention (simt)": lambda r: fa_ops.flash_attention(r(q32), k.float(), v.float()),
+        "flash_decode": lambda r: fd_ops.flash_decode(
+            r(q[:, :1].contiguous()), k, v, torch.full((1,), 64, dtype=torch.int32, device=cuda)),
+        "selective_scan": lambda r: ss_ops.selective_scan(
+            r(torch.zeros(1, 8, 32, device=cuda)), torch.ones(1, 8, 32, device=cuda),
+            -torch.ones(32, 4, device=cuda), torch.zeros(1, 8, 4, device=cuda),
+            torch.zeros(1, 8, 4, device=cuda)),
+    }
+    w, g, ws, (a0, a1) = _guided_inputs(cuda, torch.float32, 100, seed=1)
+    calls.update({
+        "guided_sgd_update": lambda r: ops.guided_sgd_update_raw(r(w), g, ws, 0.1, 0.0),
+        "guided_momentum_update": lambda r: ops.guided_momentum_update_raw(
+            w, r(g), ws, a0, 0.1, 0.0, 0.9),
+        "guided_rmsprop_update": lambda r: ops.guided_rmsprop_update_raw(
+            w, g, ws, r(a0), 0.1, 0.0, 0.9, 1e-8),
+        "guided_adam_update": lambda r: ops.guided_adam_update_raw(
+            w, g, r(ws), a0, a1, 1, 0.1, 0.0, 0.9, 0.999, 1e-8),
+    })
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError,
+                           match=re.escape(f"{name}: the CUDA kernel has no backward")):
+            call(lambda t: t.detach().clone().requires_grad_())
+        with torch.no_grad():
+            call(lambda t: t.detach().clone().requires_grad_())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("name", ["sgd", "momentum", "adam"])
+def test_tree_fused_update_in_place_at_a_full_width_leaf(cuda, name):
+    """yi-9b's embedding table (64000 x 4096 bf16, one leaf of the mesh
+    trainer's params) through tree_fused_update in place, DC-ASGD's lam, one
+    launch, against the plain version on fresh outputs: weights within one
+    bf16 ulp, accumulators within the f32 bar."""
+    from repro_torch.kernels.guided_update import ops
+    from repro_torch.kernels.guided_update import ref as R
+
+    w, g, ws, (a0, a1) = _guided_inputs(cuda, torch.bfloat16, 64000 * 4096, seed=5)
+    shape = (64000, 4096)
+    w, g, ws, a0, a1 = (t.view(shape) for t in (w, g, ws, a0, a1))
+    hy = {"sgd": {}, "momentum": {"beta": 0.9}, "adam": {"b1": 0.9, "b2": 0.999, "eps": 1e-8}}
+    st = {"sgd": (), "momentum": {"m": {"t": a0.clone()}},
+          "adam": {"m": {"t": a0.clone()}, "v": {"t": a1.clone()}, "t": 6}}[name]
+    if name == "sgd":
+        want = (R.guided_sgd_update_ref(w, g, ws, 0.2, 0.04),)
+    elif name == "momentum":
+        want = R.guided_momentum_update_ref(w, g, ws, a0, 0.2, 0.04, 0.9)
+    else:
+        want = R.guided_adam_update_ref(w, g, ws, a0, a1, 7, 0.2, 0.04, 0.9, 0.999, 1e-8)
+    params = {"t": w.clone()}
+    ptr = params["t"].data_ptr()
+    key = f"guided_{name}_update"
+    n0 = ops.launches[key]
+    params, st = ops.tree_fused_update(ops.fused_update_for(name, **hy[name]), name, params,
+                                       {"t": g}, {"t": ws}, st, 0.2, 0.04)
+    torch.cuda.synchronize()
+    assert ops.launches[key] == n0 + 1 and params["t"].data_ptr() == ptr
+    got = (params["t"],) + tuple(st[k]["t"] for k in ("m", "v") if st and k in st)
+    _guided_close(got, want, torch.bfloat16)
+
+
+@pytest.mark.parametrize("strategy,mode", [("dc_asgd", "asgd"), ("guided_two_pass", "ssgd")])
+def test_mesh_trainer_on_card_matches_cpu(cuda, strategy, mode):
+    """Five steps of the reduced yi-9b (f32, 2 layers) on the card and on
+    the CPU from one state drawn on the CPU, on the same batches (DC-ASGD's
+    lam fold; the two-pass strategy's second backward at window ends): one
+    fused guided-update launch per param leaf and step on the card, nothing
+    else launched, and the same losses within 1e-4 (float32; the card's
+    cuBLAS sums in another order than the CPU, and 5 steps at lr 1e-2 grow
+    that to a few ulps of losses of order 7)."""
+    from repro_torch.common import tree_leaves, tree_map
+    from repro_torch.data import synthetic_lm_batches
+    from repro_torch.engine import ExperimentSpec
+    from repro_torch.engine import mesh as M
+    from repro_torch.kernels.guided_update import ops
+    from repro_torch.kernels.selective_scan import ops as ss_ops
+    from repro_torch.optim import constant, get_optimizer
+
+    spec = ExperimentSpec(backend="mesh", mode=mode, strategy=strategy, rho=2, lr=1e-2,
+                          steps=5, seq_len=16, global_batch=4, workers=2)
+    cfg, gcfg, opt = spec.model_config(), spec.to_guided_config(), get_optimizer("sgd")
+    stream = synthetic_lm_batches(cfg.vocab_size, 16, 4, seed=0, n_corpora=2)
+    batches = [next(stream) for _ in range(5)]
+    params, gstate = M.init_train_state(torch.Generator().manual_seed(0), cfg, gcfg, opt, 2,
+                                        strategy=strategy, device="cpu")
+    to = lambda t, dev: tree_map(lambda x: x.to(dev), t)  # noqa: E731
+    losses = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = to(params, dev)
+        g = gstate._replace(score=gstate.score.to(dev),
+                            prev_worker_loss=gstate.prev_worker_loss.to(dev),
+                            prev_avg_loss=gstate.prev_avg_loss.to(dev),
+                            w_stale=to(gstate.w_stale, dev) if gcfg.needs_stale else ())
+        step = M.build_train_step(cfg, gcfg, opt, constant(spec.lr), n_workers=2,
+                                  strategy=strategy)
+        before = (dict(ops.launches), fa_ops.launches, fd_ops.launches, ss_ops.launches)
+        losses[dev.type] = []
+        for b in batches:
+            p, g, m = step(p, g, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            losses[dev.type].append(m["loss"].item())
+        if dev.type == "cuda":
+            assert (ops.launches["guided_sgd_update"] - before[0]["guided_sgd_update"]
+                    == 5 * len(tree_leaves(p)))
+            assert (fa_ops.launches, fd_ops.launches, ss_ops.launches) == before[1:]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=0, atol=1e-4)
 
 
 def test_scan_trainer_on_card_matches_cpu(cuda):

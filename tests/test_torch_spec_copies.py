@@ -105,14 +105,15 @@ def test_topologies_and_algo_names_equal_the_reference():
 def test_every_spec_field_default_equals_the_reference():
     ref = {f.name: f.default for f in dataclasses.fields(JSPEC.ExperimentSpec)}
     port = dataclasses.fields(SPEC.ExperimentSpec)
-    assert len(port) == 19
+    assert len(port) == 35
     for f in port:
         assert f.name in ref, f.name
         assert f.default == ref[f.name], f.name
 
 
 def test_spec_tables_equal_the_reference():
-    for name in ("ALGOS", "TOPOLOGIES", "OPTIMIZERS", "SIM_OPTIMIZERS", "BACKENDS", "MODES"):
+    for name in ("ALGOS", "TOPOLOGIES", "OPTIMIZERS", "SIM_OPTIMIZERS", "BACKENDS", "MODES",
+                 "SCHEDULES", "SENTINELS"):
         assert getattr(SPEC, name) == getattr(JSPEC, name), name
     assert SPEC.needs_stale_message("a", "b", "ssgd") == JSPEC.needs_stale_message("a", "b", "ssgd")
 
@@ -165,3 +166,43 @@ def test_guided_config_equals_the_reference():
     assert G.MODES == ("seq", "ssgd", "asgd", "dc_asgd")
     with pytest.raises(AssertionError):
         G.GuidedConfig(mode="bogus")
+
+
+# --------------------------------------------------------- mesh knobs
+
+
+def _mesh_pairs():
+    return [dict(),
+            dict(arch="yi_9b", reduced=False, strategy="guided_fused", steps=20),
+            dict(mode="asgd", strategy="dc_asgd", staleness=3, dc_lambda=0.1, workers=4),
+            dict(mode="asgd", strategy="dc_asgd_guided", schedule="wsd", warmup=2, micro=2),
+            dict(strategy="guided_two_pass", correction_scale=0.5, magnitude_weight=0.3,
+                 chunk_steps=3, prefetch=True, seq_len=64, global_batch=16),
+            dict(model_overrides=(("n_layers", 16),), reduced=False, optimizer="adam",
+                 schedule="cosine"),
+            dict(model_overrides=(("remat", "none"), ("attn_impl", "xla_chunked")))]
+
+
+@pytest.mark.parametrize("kw", _mesh_pairs(), ids=str)
+def test_mesh_spec_lowerings_equal_the_reference(kw):
+    """The mesh knobs: to_guided_config and model_config (field by field,
+    dtype names included) as the reference lowers them."""
+    port, ref = SPEC.ExperimentSpec(backend="mesh", **kw), JSPEC.ExperimentSpec(backend="mesh", **kw)
+    for f in dataclasses.fields(SPEC.ExperimentSpec):
+        assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    assert dataclasses.asdict(port.to_guided_config()) == dataclasses.asdict(ref.to_guided_config())
+    assert dataclasses.asdict(port.model_config()) == dataclasses.asdict(ref.model_config())
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(schedule="linear"), "unknown schedule"),
+    (dict(chunk_steps=0), "chunk_steps must be >= 1"),
+    (dict(ckpt_every=5), "needs ckpt_dir"),
+    (dict(ckpt_every=-1, ckpt_dir="d"), "must be >= 0"),
+    (dict(sentinel="loud"), "unknown sentinel"),
+    (dict(sentinel="finite", backend="scan"), "screens the mesh carry"),
+])
+def test_mesh_spec_validations_equal_the_reference(kw, match):
+    for mod in (SPEC, JSPEC):
+        with pytest.raises(ValueError, match=match):
+            mod.ExperimentSpec(**kw)
