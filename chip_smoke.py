@@ -30,7 +30,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
 6. guided   each of the four guided-update kernels against its plain
             version in f64, f32 and bf16 (f32 compute), at the training
             path's shape (30 seeds x (31, 2) weights, f64) and at one yi-9b
-            FFN leaf (4096 x 11008); times beside the bytes bound.
+            FFN leaf (4096 x 11008), and sgd and rmsprop at the dist chief's
+            (31, 2) f64; times beside the bytes bound.
 7. train    the second main path: the paper's scan-backend trainer on
             phishing at full width (30 seeds, 50 epochs, lr 0.2, rho 10,
             batch 16: 4900 arrivals per fit) through Trainer(device="cuda")
@@ -89,14 +90,37 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             profiled wall time), the top kernels, the guided kernels' share
             of a step, tokens/s and the model-FLOPs utilization (mfu).
 
+16. dist     the fifth main path: the async parameter server at the paper's
+            protocol on phishing, through repro_torch.dist.run_local (what
+            Trainer(backend="dist") calls): 5 replay fits (gSSGD, gASGD,
+            DC-ASGD, gSRMSprop, gap-aware ASGD), each with a chief whose
+            store lives on the card and 10 worker processes, 4900 applies.
+            Launch counters zeroed before and read after: one launch of the
+            optimizer's guided kernel per applied push, nothing else. Each
+            fit's observed staleness sequence must equal the extracted
+            schedule; its trajectory is held as check_fit holds the train
+            fits (train_ps, else the port's CPU replay; a fit past the bar
+            must replay on the CPU from the card's chief state).
+17. profile_dist  a gASGD replay fit under torch.profiler: the chief's
+            device time and busy share over applies 2000-2200, and the
+            start time of 10 worker processes.
+18. dist_live  gASGD free-running through Trainer(backend="dist") with 10
+            workers under the supervisor, on standardized phishing: worker
+            3 killed at version 1200 and restarted at 2400, a worker joined
+            at 3600; the full budget, exits and a join, the staleness
+            histogram, the validation loss within 0.25 of the scan fit's,
+            one launch per apply, no leaked thread.
+
 The yi-9b phases (3-5) run first and free their model before the hybrid's;
-the mesh phases run last, each fit's state freed before the next. Then a
-line with the card's name and power limit, a {"kernels": [...]} line
-listing all seven kernels (flash_attention and flash_decode once for each
-serve path, at that path's shape and with that path's launches; the guided
-kernels once for the scan trainer and once for each mesh fit, at that
-fit's largest leaf and with that fit's launches), and last {"ok": true,
-"device": {...}}. Exits 1 without a CUDA device.
+the mesh phases follow, each fit's state freed before the next, then the
+dist phases. Then a line with the card's name and power limit, a
+{"kernels": [...]} line listing all seven kernels (flash_attention and
+flash_decode once for each serve path, at that path's shape and with that
+path's launches; the guided kernels once for the scan trainer and once for
+each mesh fit, at that fit's largest leaf and with that fit's launches, and
+sgd and rmsprop once for the dist replay fits and sgd once for dist_live,
+at the chief's (31, 2) f64 shape), and last {"ok": true, "device": {...}}.
+Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -104,7 +128,9 @@ import argparse
 import json
 import os
 import statistics
+import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -1245,6 +1271,279 @@ def profile_mesh(mods, dev, seed, card):
     return res
 
 
+# --------------------------------------------------- async parameter server
+
+
+def dist_fits(ExperimentSpec):
+    """The dist phase's replay fits: name -> spec (phishing, the paper's
+    Table 1 protocol; c = rho = 10 worker processes, 4900 arrivals). Picked
+    to cover the chief's kernel paths: guided sgd at lambda 0 (gSSGD), the
+    asgd guided window (gASGD), lambda folded into the sgd kernel (DC-ASGD),
+    the rmsprop kernel (gSRMSprop), and the two-phase path (gap-aware:
+    compensate_grads, then a lambda-0 launch)."""
+    base = dict(backend="dist", dist_mode="replay")
+    fits = {a: ExperimentSpec.for_algo(a, **base)
+            for a in ("gSSGD", "gASGD", "DC-ASGD", "gSRMSprop")}
+    fits["ASGD-gap_aware"] = ExperimentSpec(mode="asgd", strategy="gap_aware", **base)
+    return fits
+
+
+def dist_schedule(dmods, spec, data):
+    """The DelaySchedule the chief replays, extracted independently of it."""
+    X, y, k = data[:3]
+    topology = spec.resolved_topology
+    return dmods["prepare_run"](X, y, k, spec.to_schedule_config(),
+                                delay_sampler=dmods["samplers"][topology],
+                                topology=topology)
+
+
+def dist_drive(dmods, store, schedule, train, stop):
+    """The replay protocol in this process, arrival by arrival: the pull and
+    push each scheduled worker makes, its gradient computed as a worker does."""
+    Xa, y = train
+    for t in range(store.progress(), stop):
+        wid = int(schedule.worker[t])
+        W, fetch_v, rows = store.replay_pull(wid)
+        store.replay_push(wid, dmods["grad"](W, Xa[rows], y[rows]), fetch_v)
+
+
+def dist_shadow_check(dmods, spec, data, hist, points=5, stretch=50):
+    """shadow_check for a dist fit: the card's chief state replayed on the CPU.
+
+    A ParameterStore on the card is driven in this process through the same
+    replay protocol (pulls, gradients computed as the workers compute them,
+    pushes); it must reproduce the main path's history bit for bit. At
+    `points` arrivals its whole state is copied to the CPU (`store.to`) and
+    both continue `stretch` arrivals: the CPU store (the kernels' plain
+    versions, held against train_ps and the JAX dist by the tests) must give
+    the card's validation losses and weights within TRAIN_BAR. Returns (max
+    abs error over the stretches, bitwise rerun)."""
+    W0, train, val, sched = dist_schedule(dmods, spec, data)
+    strategy = dmods["get_compensator"](spec.strategy, spec.to_guided_config())
+    card = dmods["ParameterStore"](spec, strategy, W0, train, val, sched.n_steps,
+                                   schedule=sched)   # device="cuda"
+    host = (dmods["aug"](np.asarray(train[0], np.float64)), np.asarray(train[1]))
+    err = 0.0
+    for start in np.linspace(0, sched.n_steps - stretch, points).astype(int):
+        dist_drive(dmods, card, sched, host, int(start))
+        cpu = card.to("cpu")
+        stop = int(start) + stretch
+        dist_drive(dmods, card, sched, host, stop)
+        dist_drive(dmods, cpu, sched, host, stop)
+        a = np.array([v for _, v in card.history[int(start):stop]])
+        b = np.array([v for _, v in cpu.history[int(start):stop]])
+        err = max(err, float(np.abs(a - b).max()), (card.W.cpu() - cpu.W).abs().max().item())
+    dist_drive(dmods, card, sched, host, sched.n_steps)
+    rerun_equal = bool(np.array_equal(np.array([v for _, v in card.history]), hist))
+    return err, rerun_equal
+
+
+def check_dist_fit(name, spec, res, data, dmods):
+    """Hold a card replay fit against its reference as check_fit holds the
+    train fits: the numpy train_ps where it runs the fit, else the port's
+    CPU replay of the same seed (real worker processes again, the kernels'
+    plain versions); TRAIN_BAR on every arrival's validation loss and on the
+    final train and validation losses. A fit that misses the bar (the
+    chaotic rmsprop fit: round-off grows tenfold every few hundred arrivals)
+    must pass dist_shadow_check."""
+    X, y, k = data[:3]
+    hist = np.array([v for _, v in res["history"]])
+    try:
+        cfg = spec.replace(backend="sim").to_ps_config()
+    except ValueError:
+        cfg = None
+    if cfg is not None:
+        ref_name, ref = "train_ps", dmods["train_ps"](X, y, k, cfg)
+    else:
+        ref_name, ref = "cpu_fit", dmods["run_local"](spec, X, y, k, device="cpu")
+    ref_hist = np.array([v for _, v in ref["history"]])
+    err = float(max(np.abs(hist - ref_hist).max(), abs(res["train_loss"] - ref["train_loss"]),
+                    abs(res["val_loss"] - ref["val_loss"])))
+    out = {"reference": ref_name, "max_abs_err": err, "bar": TRAIN_BAR,
+           "within_bar": err <= TRAIN_BAR}
+    if err <= TRAIN_BAR:
+        return out
+    out["departs_at"] = departs_at(hist, ref_hist)
+    d = np.abs(hist - ref_hist)
+    out["first_past_1e-13_1e-11_1e-9_1e-7"] = [int(np.argmax(d > b)) if (d > b).any() else None
+                                               for b in (1e-13, 1e-11, 1e-9, 1e-7)]
+    out["shadow_max_abs_err"], out["rerun_bitwise"] = dist_shadow_check(dmods, spec, data, hist)
+    if not out["rerun_bitwise"] or out["shadow_max_abs_err"] > TRAIN_BAR:
+        raise RuntimeError(f"dist {name}: {err} from {ref_name}, and the card's chief does "
+                           f"not replay on the CPU: {out}")
+    return out
+
+
+def dist_main_path(data, dmods, counters, ExperimentSpec):
+    """The five replay fits on the card through `repro_torch.dist.run_local`
+    (the function Trainer(backend="dist") calls; it also returns the observed
+    staleness sequence). Launch counters are zeroed before the first fit and
+    read after the last; each fit must launch its optimizer's guided kernel
+    once per applied push and nothing else (gap-aware: compensate_grads in
+    torch, then a lambda-0 launch). Then each fit's staleness sequence is
+    held against the extracted schedule and its trajectory against its
+    reference. Returns (result lines, the counts)."""
+    reset, read = counters
+    X, y, k, Xte, yte = data
+    runs = []
+    reset()
+    for name, spec in dist_fits(ExperimentSpec).items():
+        before = read()
+        t0 = time.perf_counter()
+        res = dmods["run_local"](spec, X, y, k, Xte, yte)   # device="cuda"
+        wall = time.perf_counter() - t0
+        after = read()
+        used = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+        want = {f"guided_{spec.optimizer}_update": res["n_steps"]}
+        if used != want or res["n_steps"] != 4900:
+            raise RuntimeError(f"dist {name}: launches {used} over {res['n_steps']} applies, "
+                               f"want {want}")
+        runs.append((name, spec, res, wall, used))
+    launches = read()
+    results = []
+    for name, spec, res, wall, used in runs:
+        sched = dist_schedule(dmods, spec, data)[3]
+        if not np.array_equal(res["staleness_seq"], sched.staleness):
+            raise RuntimeError(f"dist {name}: observed staleness differs from the schedule")
+        losses = np.array([res["train_loss"], res["val_loss"]] + [v for _, v in res["history"]])
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"dist {name}: non-finite losses")
+        line = {"phase": "dist", "fit": name, "mode": spec.mode, "strategy": spec.strategy,
+                "optimizer": spec.optimizer, "workers": res["dist"]["n_workers"],
+                "applies": res["n_steps"], "wall_s": wall,
+                "applies_per_s": res["n_steps"] / wall, "wall_ms_per_apply": wall * 1e3 /
+                res["n_steps"], "launches": used, "staleness_equals_schedule": True,
+                "staleness_hist": res["staleness_hist"], "worker_exits":
+                res["dist"]["worker_exits"], "val_loss": res["val_loss"],
+                "test_accuracy": res["test_accuracy"]}
+        line.update(check_dist_fit(name, spec, res, data, dmods))
+        emit(line)
+        results.append(line)
+    return results, launches
+
+
+def worker_start_s(n=10) -> float:
+    """Seconds for `n` dist worker processes, started together as the
+    launcher starts them, to import and exit (`--help`): a worker's start."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src")}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.dist.worker", "--help"],
+                              env=env, stdout=subprocess.DEVNULL) for _ in range(n)]
+    if any(p.wait(timeout=120) for p in procs):
+        raise RuntimeError("a dist worker process failed to start")
+    return time.perf_counter() - t0
+
+
+def profile_dist(data, dmods, ExperimentSpec, first=2000, applies=200):
+    """gASGD replay on the card (10 worker processes) under torch.profiler
+    (device activity only). The guided kernel launches once per apply, so
+    its launches mark the applies: over applies first .. first+applies, the
+    chief's device time per apply (every kernel and copy in the window), the
+    card's busy share (the union of those intervals over the window's span)
+    and the profiled wall time per apply. Then, unprofiled, the same store
+    driven in this process through the same protocol (no sockets, no worker
+    processes, the gradients computed here): the wall time of an apply
+    without the transport, over the same applies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    X, y, k = data[:3]
+    spec = ExperimentSpec.for_algo("gASGD", backend="dist", dist_mode="replay")
+    W0, train, val, sched = dist_schedule(dmods, spec, data)
+    store = dmods["ParameterStore"](spec, dmods["get_compensator"](
+        spec.strategy, spec.to_guided_config()), W0, train, val, sched.n_steps, schedule=sched)
+    host = (dmods["aug"](np.asarray(train[0], np.float64)), np.asarray(train[1]))
+    dist_drive(dmods, store, sched, host, first)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist_drive(dmods, store, sched, host, first + applies)
+    inproc_ms = (time.perf_counter() - t0) * 1e3 / applies
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = dmods["run_local"](spec, X, y, k)
+    events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                    key=lambda e: e.time_range.start)
+    marks = [e.time_range.start for e in events if "sgd_kernel" in e.name]
+    if len(marks) != res["n_steps"]:
+        raise RuntimeError(f"profile_dist: {len(marks)} guided kernels traced over "
+                           f"{res['n_steps']} applies")
+    lo, hi = marks[first], marks[first + applies]
+    window = [e for e in events if lo <= e.time_range.start < hi]
+    busy, end = 0.0, lo
+    for e in window:
+        a, b = max(e.time_range.start, end), min(e.time_range.end, hi)
+        busy += max(0.0, b - a)
+        end = max(end, b)
+    device_us = sum(e.time_range.end - e.time_range.start for e in window)
+    names = {}
+    for e in window:
+        names[e.name[:60]] = names.get(e.name[:60], 0.0) + e.time_range.end - e.time_range.start
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+    return {"phase": "profile_dist", "fit": "gASGD", "applies": applies, "from_apply": first,
+            "profiled_wall_ms_per_apply": (hi - lo) / 1e3 / applies,
+            "in_process_wall_ms_per_apply": inproc_ms,
+            "device_us_per_apply": device_us / applies,
+            "device_activities_per_apply": len(window) / applies,
+            "device_busy_share": busy / (hi - lo),
+            "top_device_us_per_apply": [{"name": n, "us": t / applies} for n, t in top]}
+
+
+def dist_live(data, dmods, counters, ExperimentSpec, Trainer):
+    """gASGD in live mode through Trainer(backend="dist") on the card: 10
+    free-running worker processes under the supervisor; worker 3 killed at
+    version 1200 and restarted at 2400, an elastic worker joined at 3600.
+    The full step budget must complete with at least one worker exit and
+    one join, the observed staleness histogram must sum to the applies, the
+    validation loss must land within 0.25 of the scan fit's (the
+    reference's bar, tests/test_dist.py), one guided launch per apply, and
+    no thread may outlive the fit.
+
+    The rows are phishing's, each feature standardized by the training
+    split's mean and deviation. On the raw features (one column reaches
+    12715) gASGD at lr 0.2 is chaotic: the train phase's 30 seeds end at
+    validation losses orders of magnitude apart, and one run's loss swings
+    as widely from epoch to epoch, so a 0.25 bar between one live run and
+    one scan run would measure chance. Standardized, the seeds end close
+    together and the bar tests that live training reaches the scan fit's
+    loss."""
+    reset, read = counters
+    Xtr, ytr, k, Xte, yte = data
+    mu, sd = Xtr.mean(axis=0), Xtr.std(axis=0) + 1e-12
+    data = ((Xtr - mu) / sd, ytr, k, (Xte - mu) / sd, yte)
+    spec = ExperimentSpec.for_algo("gASGD", backend="dist", dist_mode="live", workers=10,
+                                   dist_events=(("kill", 3, 1200), ("restart", 3, 2400),
+                                                ("join", 0, 3600)))
+    threads_before = {t.ident for t in threading.enumerate()}
+    reset()
+    t0 = time.perf_counter()
+    rep = Trainer.from_spec(spec).fit(data)     # device="cuda"
+    wall = time.perf_counter() - t0
+    launches = read()
+    leaked = []
+    for _ in range(100):   # close() joins with timeouts; allow a beat
+        leaked = [t.name for t in threading.enumerate() if t.ident not in threads_before]
+        if not leaked:
+            break
+        time.sleep(0.05)
+    scan = Trainer.from_spec(spec.replace(backend="scan", dist_mode="replay", workers=0,
+                                          dist_events=())).fit(data)
+    hist = rep.staleness_hist
+    res = {"phase": "dist_live", "fit": "gASGD", "workers": rep.dist["n_workers"],
+           "applies": rep.n_steps, "wall_s": wall, "applies_per_s": rep.n_steps / wall,
+           "launches": {n: v for n, v in launches.items() if v},
+           "worker_exits": rep.dist["worker_exits"], "joins": rep.dist["joins"],
+           "supervisor": rep.dist["supervisor"], "late": rep.dist["late"],
+           "staleness_hist": hist, "mean_staleness":
+           sum(s * n for s, n in hist.items()) / max(rep.n_steps, 1),
+           "val_loss": rep.val_loss, "scan_val_loss": scan.val_loss,
+           "test_accuracy": rep.test_accuracy, "leaked_threads": leaked}
+    ok = (rep.n_steps == scan.n_steps == 4900 and rep.dist["worker_exits"] >= 1
+          and rep.dist["joins"] >= 1 and hist and sum(hist.values()) == rep.n_steps
+          and abs(rep.val_loss - scan.val_loss) < 0.25 and not leaked
+          and res["launches"] == {"guided_sgd_update": rep.n_steps})
+    if not ok:
+        raise RuntimeError(f"dist_live failed its checks: {res}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1335,6 +1634,16 @@ def main(argv=None) -> int:
                 emit({"phase": "guided", **c})
                 if not c["within_bar"]:
                     raise RuntimeError(f"guided kernel disagrees with its plain version: {c}")
+    # the dist chief's shape: one (31, 2) f64 weight matrix a launch
+    main_dist = {}
+    for i, name in enumerate(("guided_sgd_update", "guided_rmsprop_update")):
+        c = check_guided(gu_ops, gu_ref, dev, flush, name=name, shape=(31, 2),
+                         dtype=torch.float64, seed=50 + i)
+        c["main_path_shape"] = "dist"
+        main_dist[name] = c
+        emit({"phase": "guided", **c})
+        if not c["within_bar"]:
+            raise RuntimeError(f"guided kernel disagrees with its plain version: {c}")
 
     # the selective scan: the hybrid path's longest prefill (2048 tokens of
     # jamba's ed = 16384, n = 16), odd lengths, and h0 chained at B = 2
@@ -1398,6 +1707,26 @@ def main(argv=None) -> int:
     emit({"phase": "mesh_total", "seconds": time.perf_counter() - t0,
           "launches": mesh_launches})
 
+    # the async parameter server: five replay fits held against their
+    # references, a profiled replay fit, and a live fit with faults
+    from repro_torch.common.topologies import TOPOLOGY_SAMPLERS
+    from repro_torch.core.parameter_server import prepare_run
+    from repro_torch.dist import ParameterStore, run_local
+    from repro_torch.dist.logreg import _aug, grad
+
+    dmods = {"run_local": run_local, "ParameterStore": ParameterStore,
+             "prepare_run": prepare_run, "samplers": TOPOLOGY_SAMPLERS,
+             "get_compensator": strategies.get_compensator, "train_ps": train_ps,
+             "aug": _aug, "grad": grad}
+    t0 = time.perf_counter()
+    _, dist_launches = dist_main_path(data, dmods, counters[:2], ExperimentSpec)
+    emit(dict(profile_dist(data, dmods, ExperimentSpec), worker_start_s=worker_start_s(),
+              card=card))
+    live = dist_live(data, dmods, counters[:2], ExperimentSpec, Trainer)
+    emit(live)
+    emit({"phase": "dist_total", "seconds": time.perf_counter() - t0,
+          "launches": dist_launches})
+
     # one entry per kernel and serve path: that path's launches beside the
     # numbers measured at the shape that path gives the kernel
     entries = []
@@ -1427,6 +1756,10 @@ def main(argv=None) -> int:
         runs = [("train", None, c, train_launches[name])]
         runs += [("mesh", r["fit"], r["largest_leaf"], r["launches"][name])
                  for r in mesh_runs if name in r["launches"]]
+        if name in main_dist:
+            runs.append(("dist", None, main_dist[name], dist_launches[name]))
+        if name in live["launches"]:
+            runs.append(("dist_live", live["fit"], main_dist[name], live["launches"][name]))
         for path, fit, c, launches in runs:
             entries.append({"name": name, "variant": "simt", "route": "cuda",
                             "source": GUIDED_SRC, "replaces": replaces, "path": path,

@@ -1,11 +1,12 @@
 """Tree helpers over the port's parameter trees (port of the pytree helpers
 of `repro.common`): nested dicts whose leaves are tensors. Anything that is
-not a dict is a leaf, so a bare tensor is a one-leaf tree."""
+not a dict is a leaf, so a bare tensor is a one-leaf tree. The package
+imports no torch: the dist workers import `repro_torch.common.topologies`
+and must not pay for it."""
 from __future__ import annotations
 
+import operator
 from typing import Callable, List
-
-import torch
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -30,4 +31,4 @@ def tree_unflatten(like, leaves):
 
 
 def tree_add(a, b):
-    return tree_map(torch.add, a, b)
+    return tree_map(operator.add, a, b)

@@ -286,6 +286,12 @@ class DelaySchedule:
     def max_staleness(self) -> int:
         return int(self.staleness.max(initial=0))
 
+    @property
+    def fetch_version(self) -> np.ndarray:
+        """(T,) server version each arrival's gradient was fetched at:
+        f_t = t - s_t (the store had applied f_t updates at fetch time)."""
+        return np.arange(self.n_steps, dtype=np.int64) - self.staleness
+
 
 def _event_schedule(n_batches: int, c: int, rng, delay_sampler, t0: int):
     """One epoch of the ASGD event-queue simulation, gradient math elided.

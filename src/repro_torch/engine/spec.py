@@ -1,6 +1,6 @@
 """`ExperimentSpec` — the fields of `repro.engine.spec.ExperimentSpec` that
-the sim, scan and mesh backends read, with the reference's names, defaults
-and construction-time validation.
+the sim, scan, mesh and dist backends read, with the reference's names,
+defaults and construction-time validation.
 
     backend="sim"  — the numpy event-driven parameter server
                      (`PSConfig` + `train_ps`, repro_torch.core.parameter_server);
@@ -8,12 +8,15 @@ and construction-time validation.
                      the same trajectories as the sim to float64 round-off,
                      `n_seeds` seeds batched, delay topologies via `topology`;
     backend="mesh" — the strategy-hooked transformer trainer
-                     (repro_torch.engine.mesh / trainloop) on one card.
+                     (repro_torch.engine.mesh / trainloop) on one card;
+    backend="dist" — the async parameter server (repro_torch.dist): a chief
+                     applying real worker processes' pushes on the card,
+                     replayed against the schedule or free-running (`dist_*`
+                     fields), with the resilience knobs of its live mode.
 
-backend="dist" is accepted here, as in the reference, and refused by the
-Trainer: it is not ported yet, and neither are its fields. `ckpt_dir`,
-`ckpt_every` and `sentinel` are validated as the reference validates them
-and refused by the mesh fit (checkpointing and resilience come later).
+`ckpt_dir`, `ckpt_every`, `keep_last` and `sentinel` are validated as the
+reference validates them; the dist chief honours them, the mesh fit still
+refuses them (mesh checkpoints and its sentinel come later).
 """
 from __future__ import annotations
 
@@ -49,8 +52,26 @@ _DEFAULT_TOPOLOGY = {"seq": "seq", "ssgd": "barrier", "asgd": "exp"}
 # mesh-backend lr schedules (resolved by repro_torch.optim.schedules.for_run)
 SCHEDULES = ("constant", "wsd", "cosine")
 
-# divergence-sentinel screening levels of the reference (not ported: the
-# mesh fit refuses any but "")
+# dist-backend execution disciplines (repro_torch.dist):
+#   replay — real worker processes, scheduled interleaving: the chief grants
+#            pulls/pushes against the extracted DelaySchedule, so the run is
+#            deterministic and parity-checkable against backend="scan".
+#   live   — free-running asynchrony: staleness is observed, not scripted;
+#            the fault-injection knobs (events, drop rate, slowdowns) and
+#            DaSGD delayed averaging only exist here.
+DIST_MODES = ("replay", "live")
+
+# fault-injection event verbs: ("kill", wid, at_version) terminates worker
+# wid's process once the store reaches at_version; "restart" kills AND
+# respawns it; "join" spawns an additional elastic worker (wid ignored).
+DIST_EVENT_OPS = ("kill", "restart", "join")
+
+# divergence-sentinel screening levels (repro_torch.resilience; the mesh fit
+# refuses any but "" until its sentinel is ported):
+#   ""       — off (the default)
+#   "finite" — reject non-finite gradients (NaN/Inf never reach W)
+#   "full"   — "finite" plus a norm-explosion screen (vs a running norm EMA)
+#              on the chief
 SENTINELS = ("", "finite", "full")
 
 # algorithm names as printed in the paper's tables -> (mode, strategy, optimizer)
@@ -109,6 +130,14 @@ class ExperimentSpec:
     eps: float = 1e-8
     topology: str = ""             # scan: TOPOLOGIES key ("" -> mode default)
     n_seeds: int = 1               # scan: batch seeds seed..seed+n_seeds-1
+    # ------------------------------------------------------------ dist knobs
+    dist_mode: str = "replay"      # replay | live (DIST_MODES)
+    delayed_avg: bool = False      # live: DaSGD-style push/pull overlap + merge
+    dist_drop_rate: float = 0.0    # live: chief drops this fraction of pushes
+    dist_time_scale: float = 0.0   # live: seconds per sampled compute-time unit
+                                   # (0 -> workers never sleep; full speed)
+    dist_events: tuple = ()        # live: ((op, wid, at_version), ...) faults
+    dist_timeout: float = 120.0    # watchdog: max seconds without progress
     # ------------------------------------------------------------ mesh knobs
     arch: str = "yi_9b"
     reduced: bool = True
@@ -120,6 +149,7 @@ class ExperimentSpec:
     warmup: int = 10
     mesh: str = "local"            # local (the others are not ported)
     workers: int = 0               # paper's c; 0 -> data shards of the mesh (1)
+                                   # (dist: worker PROCESSES; 0 -> schedule's c)
     micro: int = 1                 # gradient-accumulation microbatches
     staleness: int = 0             # asgd: w_stale refresh period (0 -> rho)
     chunk_steps: int = 1           # K steps per dispatch (1 -> per-step loop)
@@ -127,10 +157,28 @@ class ExperimentSpec:
     dc_lambda: float = 0.04
     correction_scale: float = 1.0
     magnitude_weight: float = 0.1
-    # ----------------------------- checkpointing / resilience (not ported)
-    ckpt_dir: str = ""
-    ckpt_every: int = 0
-    sentinel: str = ""
+    # ------------------- checkpointing (the dist chief; mesh: not ported)
+    ckpt_dir: str = ""             # "" -> checkpointing off
+    ckpt_every: int = 0            # periodic snapshot cadence (steps)
+    keep_last: int = 3             # manifest retention (0 -> keep everything)
+    # --------------------------------- resilience (repro_torch.resilience)
+    sentinel: str = ""             # SENTINELS level: "" | finite | full
+    sentinel_factor: float = 10.0  # norm explosion multiplier vs the norm EMA
+    rollback: bool = False         # dist live: on post-apply divergence,
+                                   # restore the last VERIFIED snapshot + lr
+                                   # backoff instead of failing the run
+    max_rollbacks: int = 3         # rollback budget before the run is fatal
+    lr_backoff: float = 0.5        # lr scale multiplied in at every rollback
+    quarantine_steps: int = 0      # dist live: versions a misbehaving worker's
+                                   # pushes are ignored for (0 -> never)
+    quarantine_after: int = 3      # consecutive rejections that trigger it
+    dist_supervise: bool = True    # live: supervisor thread respawns dead
+                                   # worker processes (capped backoff+jitter);
+                                   # ignored by replay (death is fatal there)
+    dist_lease_s: float = 0.0      # heartbeat lease: a worker silent this long
+                                   # is presumed hung and killed/respawned
+                                   # (0 -> process-death detection only)
+    dist_max_respawns: int = 3     # per-worker respawn budget before eviction
 
     def __post_init__(self):
         assert self.backend in BACKENDS, self.backend
@@ -146,8 +194,10 @@ class ExperimentSpec:
                 f"optimizer {self.optimizer!r} has no numpy server apply rule "
                 f"(backend={self.backend!r} supports {', '.join(SIM_OPTIMIZERS)}); "
                 f"use backend='mesh' or backend='scan' for momentum/adam")
-        if self.ckpt_every < 0:
-            raise ValueError(f"ckpt_every must be >= 0 (got {self.ckpt_every})")
+        if self.ckpt_every < 0 or self.keep_last < 0:
+            raise ValueError(
+                f"ckpt_every/keep_last must be >= 0 "
+                f"(got {self.ckpt_every}/{self.keep_last})")
         if self.ckpt_every and not self.ckpt_dir:
             raise ValueError(
                 f"ckpt_every={self.ckpt_every} needs ckpt_dir (where should "
@@ -184,15 +234,78 @@ class ExperimentSpec:
                     f"topology {self.topology!r} is defined for mode(s) "
                     f"{TOPOLOGIES[self.topology]}, got mode={self.mode!r}"
                 )
+        # ---- dist-backend rules: fail at construction, not mid-launch
+        if self.dist_mode not in DIST_MODES:
+            raise ValueError(
+                f"unknown dist_mode {self.dist_mode!r}; known: {', '.join(DIST_MODES)}")
+        faults = (self.delayed_avg or self.dist_drop_rate or self.dist_time_scale
+                  or self.dist_events)
+        if self.backend == "dist":
+            if self.dist_mode == "live" and self.mode != "asgd":
+                raise ValueError(
+                    f"dist_mode='live' IS free-running asynchronous execution: "
+                    f"use mode='asgd' (got mode={self.mode!r})")
+            if faults and self.dist_mode != "live":
+                raise ValueError(
+                    "delayed_avg / dist_drop_rate / dist_time_scale / "
+                    "dist_events need dist_mode='live' (replay is the "
+                    "deterministic parity oracle — no faults there)")
+            for ev in self.dist_events:
+                if len(ev) != 3 or ev[0] not in DIST_EVENT_OPS:
+                    raise ValueError(
+                        f"bad dist event {ev!r}; want (op, wid, at_version) "
+                        f"with op in {DIST_EVENT_OPS}")
+            if not (0.0 <= self.dist_drop_rate < 1.0):
+                raise ValueError(
+                    f"dist_drop_rate must be in [0, 1) (got {self.dist_drop_rate})")
+        elif faults:
+            raise ValueError(
+                "delayed_avg / dist_drop_rate / dist_time_scale / dist_events "
+                f"are dist-backend knobs (backend={self.backend!r})")
+        # ---- resilience rules
         if self.sentinel not in SENTINELS:
             raise ValueError(
                 f"unknown sentinel {self.sentinel!r}; known: "
                 f"{', '.join(repr(s) for s in SENTINELS)}")
+        if self.sentinel_factor <= 1.0:
+            raise ValueError(
+                f"sentinel_factor must be > 1 (got {self.sentinel_factor}): "
+                f"it multiplies the previous loss / norm EMA into a threshold")
         if self.sentinel and self.backend not in ("mesh", "dist"):
             raise ValueError(
                 f"sentinel={self.sentinel!r} screens the mesh carry or the "
                 f"dist chief's push path (backend={self.backend!r} has "
                 f"neither)")
+        if self.sentinel and self.backend == "dist" and self.dist_mode != "live":
+            raise ValueError(
+                "sentinel screening on the dist backend needs "
+                "dist_mode='live' (replay is the deterministic parity "
+                "oracle — rejecting pushes would break the schedule)")
+        remediation = self.rollback or self.quarantine_steps
+        if remediation and not (self.backend == "dist"
+                                and self.dist_mode == "live"):
+            raise ValueError(
+                "rollback / quarantine_steps remediate the live chief's "
+                f"store (backend={self.backend!r}, "
+                f"dist_mode={self.dist_mode!r})")
+        if remediation and not self.sentinel:
+            raise ValueError(
+                "rollback / quarantine_steps need a sentinel level to "
+                "detect divergence first (set sentinel='finite' or 'full')")
+        if self.max_rollbacks < 0 or self.quarantine_steps < 0:
+            raise ValueError(
+                f"max_rollbacks/quarantine_steps must be >= 0 "
+                f"(got {self.max_rollbacks}/{self.quarantine_steps})")
+        if not 0.0 < self.lr_backoff <= 1.0:
+            raise ValueError(
+                f"lr_backoff must be in (0, 1] (got {self.lr_backoff})")
+        if self.quarantine_after < 1:
+            raise ValueError(
+                f"quarantine_after must be >= 1 (got {self.quarantine_after})")
+        if self.dist_lease_s < 0 or self.dist_max_respawns < 0:
+            raise ValueError(
+                f"dist_lease_s/dist_max_respawns must be >= 0 "
+                f"(got {self.dist_lease_s}/{self.dist_max_respawns})")
 
     @property
     def resolved_topology(self) -> str:

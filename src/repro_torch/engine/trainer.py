@@ -10,12 +10,17 @@
     report = Trainer.from_spec(spec).fit()          # synthetic LM stream
     report.final_loss, report.history, report.steps_per_s
 
-backend="scan" runs the torch arrival loop (repro_torch.engine.delaysim) and
-backend="mesh" the transformer trainer (repro_torch.engine.trainloop) on
-`device` ("cuda" unless the caller asks for the CPU; a missing card raises,
-there is no silent CPU run). backend="sim" runs the numpy parameter server
-(`train_ps`) on the host, whatever `device` says. backend="dist" is not
-ported yet and raises NotImplementedError.
+    spec = ExperimentSpec(backend="dist", dist_mode="live", mode="asgd",
+                          strategy="guided_fused", workers=10)
+    report = Trainer.from_spec(spec).fit((Xtr, ytr, n_classes, Xte, yte))
+    report.staleness_hist, report.dist              # observed, not scripted
+
+backend="scan" runs the torch arrival loop (repro_torch.engine.delaysim),
+backend="mesh" the transformer trainer (repro_torch.engine.trainloop) and
+backend="dist" the async parameter server's chief (repro_torch.dist, real
+worker processes) on `device` ("cuda" unless the caller asks for the CPU; a
+missing card raises, there is no silent CPU run). backend="sim" runs the
+numpy parameter server (`train_ps`) on the host, whatever `device` says.
 """
 from __future__ import annotations
 
@@ -51,6 +56,14 @@ class Report:
     warm_steps: int = 0        # mesh: steps outside those dispatches
     warm_time_s: float = 0.0   # mesh: wall time of the warm dispatches alone
     n_steps: int = 0           # server steps this fit ran (per seed)
+    staleness_hist: dict = dataclasses.field(default_factory=dict)
+                               # dist: OBSERVED staleness -> count over every
+                               # applied update (applied_version - read_version)
+    dist: dict = dataclasses.field(default_factory=dict)
+                               # dist: run diagnostics (mode, n_workers, drops,
+                               # late, worker_exits, joins; with the
+                               # resilience layer armed also rejections/
+                               # rollbacks/supervisor counters)
 
     @property
     def final_loss(self) -> Optional[float]:
@@ -73,14 +86,10 @@ class Trainer:
     the device; data preparation and training happen inside fit()."""
 
     def __init__(self, spec: ExperimentSpec, device="cuda"):
-        if spec.backend == "dist":
-            raise NotImplementedError(
-                f"backend={spec.backend!r} is not yet ported to repro_torch; "
-                f"ported: 'sim', 'scan', 'mesh'")
         self.spec = spec
         self.device = torch.device(device)
         self.strategy = None
-        if spec.backend in ("scan", "mesh"):
+        if spec.backend in ("scan", "mesh", "dist"):
             if self.device.type == "cuda" and not torch.cuda.is_available():
                 raise RuntimeError(
                     f"device='cuda' but no CUDA device is available; pass "
@@ -98,7 +107,7 @@ class Trainer:
             resume: bool = False) -> Report:
         """Run the experiment.
 
-        sim/scan: `data` is (X, y, n_classes[, Xtest, ytest]); `steps`,
+        sim/scan/dist: `data` is (X, y, n_classes[, Xtest, ytest]); `steps`,
         `on_step` and `resume` belong to the mesh backend and are refused,
         as the reference refuses them.
         mesh: `data` is an iterable of batch dicts (None: the synthetic LM
@@ -120,12 +129,12 @@ class Trainer:
             return report
         if steps is not None or on_step is not None:
             raise ValueError(
-                "steps/on_step apply to the mesh backend; the sim/scan "
+                "steps/on_step apply to the mesh backend; the sim/scan/dist "
                 "backends run the paper's epoch protocol (set spec.epochs)"
             )
         if resume:
             raise ValueError(
-                "resume applies to the mesh backend; sim/scan runs are "
+                "resume applies to the mesh backend; sim/scan/dist runs are "
                 "single fit calls with nothing to resume into"
             )
         backend = self.spec.backend
@@ -135,12 +144,19 @@ class Trainer:
         Xtest, ytest = (rest + [None, None])[:2]
         if backend == "sim":
             res = train_ps(X, y, n_classes, self.spec.to_ps_config(), Xtest, ytest)
+        elif backend == "dist":
+            from repro_torch.dist import launcher
+
+            res = launcher.run_local(self.spec, X, y, n_classes, Xtest, ytest,
+                                     strategy=self.strategy, device=self.device)
         else:
             res = delaysim.run(self.spec, X, y, n_classes, Xtest, ytest,
                                strategy=self.strategy, device=self.device)
         final = {k: res[k] for k in ("train_loss", "val_loss", "test_accuracy") if k in res}
         report = Report(backend=backend, spec=self.spec, history=res["history"],
-                        final=final, model=res["model"], n_steps=res["n_steps"])
+                        final=final, model=res["model"], n_steps=res["n_steps"],
+                        staleness_hist=res.get("staleness_hist", {}),
+                        dist=res.get("dist", {}))
         report.wall_time_s = time.perf_counter() - t0
         report.steps_per_s = report.n_steps * self.spec.n_seeds / max(report.wall_time_s, 1e-9)
         return report

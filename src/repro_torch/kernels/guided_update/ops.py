@@ -112,6 +112,14 @@ def _launch(name, tensors, scalars, dtype, device, *flags):
     launches[name] += 1
 
 
+def load(name: str) -> None:
+    """Build the kernels' library (first call) and bind entry point `name`
+    now, on the calling thread. The build cache is lock-free, so a caller
+    that launches from several threads (the dist chief's connection
+    threads) loads its kernel here first, before it starts them."""
+    kernels.kernel_fn(name, _ARGTYPES[name])
+
+
 def guided_sgd_update_raw(w, g, w_stale, lr, lam, *, out=None):
     """g~ = g + lam*g*g*(w - w_stale); returns w - lr*g~ in w.dtype (in
     `out` when given)."""

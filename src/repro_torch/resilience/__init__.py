@@ -1,0 +1,26 @@
+"""`repro_torch.resilience` — the self-healing layer of the dist chief.
+
+  * `SentinelPolicy` / `GradScreen` / `DivergenceDetector` — divergence
+    screening on the dist chief's push path, with rollback / lr-backoff /
+    quarantine remediation (sentinel.py);
+  * `LeaseTable` / `Supervisor` — chief-side heartbeat leases and the
+    worker-process supervisor: respawn under capped backoff + jitter,
+    eviction of persistent stragglers (supervisor.py).
+
+Verified checkpoints live in `repro_torch.checkpoint`, the fault injectors
+in `repro_torch.chaos`. Numpy and the standard library only.
+"""
+from repro_torch.resilience.sentinel import (
+    DivergenceDetector,
+    GradScreen,
+    SentinelPolicy,
+)
+from repro_torch.resilience.supervisor import LeaseTable, Supervisor
+
+__all__ = [
+    "DivergenceDetector",
+    "GradScreen",
+    "LeaseTable",
+    "SentinelPolicy",
+    "Supervisor",
+]

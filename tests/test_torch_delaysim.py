@@ -352,10 +352,13 @@ def test_trainer_errors_match_the_reference(thyroid):
             Trainer.from_spec(spec, device="cpu").fit(thyroid, **kw)
     with pytest.raises(KeyError, match="registered:"):
         Trainer.from_spec(ExperimentSpec(backend="scan", strategy="nope"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        Trainer.from_spec(ExperimentSpec(backend="dist"))
-    # the mesh backend is ported (tests/test_torch_mesh.py): it constructs
+    # the mesh and dist backends are ported (tests/test_torch_mesh.py,
+    # tests/test_torch_dist.py): they construct, and dist needs data as scan does
     assert Trainer.from_spec(ExperimentSpec(backend="mesh"), device="cpu").strategy.name == "none"
+    dist = Trainer.from_spec(ExperimentSpec(backend="dist"), device="cpu")
+    assert dist.strategy.name == "none"
+    with pytest.raises(ValueError, match="dist backend needs data"):
+        dist.fit()
 
 
 def test_scan_runs_on_the_card_unless_asked(thyroid):

@@ -38,7 +38,16 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                  "repro_torch.core.consistency", "repro_torch.optim",
                  "repro_torch.optim.optimizers", "repro_torch.optim.schedules",
                  "repro_torch.engine.mesh", "repro_torch.engine.trainloop",
-                 "repro_torch.data.tokens", "repro_torch.data.prefetch"):
+                 "repro_torch.data.tokens", "repro_torch.data.prefetch",
+                 "repro_torch.dist", "repro_torch.dist.protocol",
+                 "repro_torch.dist.scenarios", "repro_torch.dist.logreg",
+                 "repro_torch.dist.store", "repro_torch.dist.chief",
+                 "repro_torch.dist.worker", "repro_torch.dist.launcher",
+                 "repro_torch.resilience", "repro_torch.resilience.sentinel",
+                 "repro_torch.resilience.supervisor", "repro_torch.checkpoint",
+                 "repro_torch.checkpoint.npz", "repro_torch.checkpoint.writer",
+                 "repro_torch.checkpoint.state", "repro_torch.chaos",
+                 "repro_torch.chaos.inject"):
         assert must in mods, must
     code = (
         "import importlib, sys\n"

@@ -2,8 +2,9 @@
 flash_attention (its tensor-core and SIMT kernels), flash_decode, the four
 guided-update kernels (in place too, at a full-width yi-9b leaf) and the
 selective scan; every wrapper's refusal of inputs that require grad; a short
-scan-trainer fit and a short mesh-trainer fit on the card against the same
-fits on the CPU; and the reduced hybrid (jamba) stack through its kernels.
+scan-trainer fit, a short mesh-trainer fit and a short replay fit of the
+async parameter server on the card against the same fits on the CPU; and
+the reduced hybrid (jamba) stack through its kernels.
 
 The `cuda` fixture skips them without an NVIDIA GPU (the kernels have no
 CPU mode). This file imports no JAX, so it runs on a card machine without the
@@ -415,6 +416,35 @@ def test_scan_trainer_on_card_matches_cpu(cuda):
         cpu = Trainer.from_spec(spec, device="cpu").fit((Xtr, ytr, k, Xte, yte))
         h = np.stack([x[1] for x in rep.history])
         hc = np.stack([x[1] for x in cpu.history])
+        assert np.abs(h - hc).max() <= 1e-9
+
+
+def test_dist_replay_on_card_matches_cpu(cuda):
+    """A short replay fit of the async parameter server with the chief on
+    the card: one guided-update launch per applied push and nothing else,
+    the schedule's staleness, the same trajectory as the chief on the CPU."""
+    from repro_torch.data import load_dataset, train_test_split
+    from repro_torch.dist import run_local
+    from repro_torch.engine import ExperimentSpec
+    from repro_torch.kernels.guided_update import ops
+
+    X, y, k = load_dataset("new_thyroid", seed=0)
+    Xtr, ytr, _, _ = train_test_split(X, y, seed=1)
+    for kw in (dict(mode="asgd", strategy="dc_asgd_guided"),
+               dict(mode="ssgd", strategy="guided_fused", optimizer="rmsprop"),
+               dict(mode="asgd", strategy="gap_aware")):
+        spec = ExperimentSpec(backend="dist", dist_mode="replay", lr=0.05, epochs=3, rho=4,
+                              **kw)
+        n0 = dict(ops.launches)
+        card = run_local(spec, Xtr, ytr, k)
+        used = {n: ops.launches[n] - n0[n] for n in n0 if ops.launches[n] != n0[n]}
+        assert used == {f"guided_{spec.optimizer}_update": card["n_steps"]}
+        assert card["n_steps"] > 0
+        cpu = run_local(spec, Xtr, ytr, k, device="cpu")
+        np.testing.assert_array_equal(card["staleness_seq"], cpu["staleness_seq"])
+        np.testing.assert_array_equal(card["staleness_seq"], card["schedule"].staleness)
+        h = np.array([v for _, v in card["history"]])
+        hc = np.array([v for _, v in cpu["history"]])
         assert np.abs(h - hc).max() <= 1e-9
 
 

@@ -105,7 +105,7 @@ def test_topologies_and_algo_names_equal_the_reference():
 def test_every_spec_field_default_equals_the_reference():
     ref = {f.name: f.default for f in dataclasses.fields(JSPEC.ExperimentSpec)}
     port = dataclasses.fields(SPEC.ExperimentSpec)
-    assert len(port) == 35
+    assert len(port) == 51
     for f in port:
         assert f.name in ref, f.name
         assert f.default == ref[f.name], f.name
@@ -113,7 +113,7 @@ def test_every_spec_field_default_equals_the_reference():
 
 def test_spec_tables_equal_the_reference():
     for name in ("ALGOS", "TOPOLOGIES", "OPTIMIZERS", "SIM_OPTIMIZERS", "BACKENDS", "MODES",
-                 "SCHEDULES", "SENTINELS"):
+                 "SCHEDULES", "SENTINELS", "DIST_MODES", "DIST_EVENT_OPS"):
         assert getattr(SPEC, name) == getattr(JSPEC, name), name
     assert SPEC.needs_stale_message("a", "b", "ssgd") == JSPEC.needs_stale_message("a", "b", "ssgd")
 
