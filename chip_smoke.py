@@ -111,6 +111,57 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             histogram, the validation loss within 0.25 of the scan fit's,
             one launch per apply, no leaked thread.
 
+19. serve_int8  yi-9b at full width and depth with kv_cache_dtype="int8"
+            behind ServeEngine(max_batch=8, max_len=2112), the serve phase's
+            16 staggered requests; launch counters zeroed before and read
+            after: 48 flash_attention per admission (all wgmma), 48
+            flash_decode per decode step (on the dequantized scratch). The
+            pool's cache bytes beside the native pool's (at most 0.56x),
+            decode tokens/s, median step ms, TTFT, and (profile_int8) the
+            dequantize pass's share of a profiled decode step's device time
+            beside flash_decode's, and the pass timed alone.
+20. parity_int8  yi-9b at full width, 4 layers: a 1000-token prefill and 8
+            decode steps teacher-forced on the native cache's greedy tokens.
+            int8 against native, both through the kernels: max relative
+            logit gap below 0.05 and greedy argmax equal at every decisive
+            step (native top-2 margin above twice the gap), at least one;
+            int8 through the kernels against int8 through the plain
+            versions at the serve parity bar.
+21. ckpt_mesh  the mesh trainer at full width, 2 layers, DC-ASGD with
+            momentum (w_stale and m in the snapshot), seq 128 x batch 8,
+            c = 4, rho 10, chunk_steps 4, constant lr: (a) 20 steps
+            unbroken; (b) 10 steps with snapshots (ckpt_every 10,
+            keep_last 2); (c) resume=True from (b)'s directory to 20; (d) 20
+            steps whose on_step sends this process SIGTERM at step index 7:
+            the fit drains, snapshots at step 8 and returns, then resumes to
+            20 (run before (b) and (c), so at most 3 archives are on disk at
+            once). The state each resume restores equals the interrupted
+            fit's final state bit for bit (every tensor, the step, the
+            cursor); (c)'s and (d)'s final
+            params are within one bf16 ulp of (a)'s (bitwise or not,
+            printed); the momentum kernel launches once per leaf per step
+            run and nothing else launches. Snapshot bytes, the loop thread's
+            and the writer's seconds a snapshot, restore seconds, bytes
+            written and the peak on disk (under a temporary directory,
+            removed at the end).
+22. serve_ckpt  ServeEngine.from_checkpoint on (c)'s directory, the config
+            from its manifest (2 layers): the restored params equal (c)'s
+            bit for bit; 16 greedy requests give the tokens of an engine
+            built on (c)'s params; 2 flash_attention per admission and 2
+            flash_decode per decode step; then `python -m
+            repro_torch.launch.serve --arch yi-9b --ckpt-dir <dir>` in a
+            subprocess must exit 0.
+23. sentinel_mesh  gSSGD with sgd at full width and depth (48 layers), seq
+            128 x batch 8, c = 4, 10 steps: unguarded, sentinel "finite",
+            "full", and "full" at lr 5000 (diverges). The clean guarded runs
+            within one bf16 ulp of the unguarded one (bitwise or not,
+            printed) with no rejection; the divergent run rejects at least
+            one step and ends finite, and at its first rejected step an
+            on_step check finds the params and the GuidedState bit for bit
+            what they were before it (64-bit weighted sums of every leaf's
+            bits); the sgd kernel launches once per leaf per step; each
+            fit's peak memory, "finite" within 1 GB of the unguarded peak.
+
 The yi-9b phases (3-5) run first and free their model before the hybrid's;
 the mesh phases follow, each fit's state freed before the next, then the
 dist phases. Then a line with the card's name and power limit, a
@@ -119,7 +170,10 @@ flash_decode once for each serve path, at that path's shape and with that
 path's launches; the guided kernels once for the scan trainer and once for
 each mesh fit, at that fit's largest leaf and with that fit's launches, and
 sgd and rmsprop once for the dist replay fits and sgd once for dist_live,
-at the chief's (31, 2) f64 shape), and last {"ok": true, "device": {...}}.
+at the chief's (31, 2) f64 shape; flash_attention and flash_decode again
+for serve_int8 and serve_ckpt, momentum for ckpt_mesh at its largest layer
+leaf, sgd for sentinel_mesh at the mesh gSSGD fit's), and last
+{"ok": true, "device": {...}}.
 Exits 1 without a CUDA device.
 """
 from __future__ import annotations
@@ -127,9 +181,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from unittest import mock
@@ -940,8 +997,10 @@ def fused_update_times(gu_ops, rep, spec):
 
 
 def check_fit_leaf(mods, gu_ref, flush, rep, spec):
-    """The fit's largest param leaf (FFN wi: 48 or 16 x 4096 x 2 x 11008 bf16,
-    past 2^31 elements at 48 layers) through its optimizer's kernel, as the
+    """The fit's largest layer leaf (stacked on the layer dim: FFN wi, 48 or 16
+    x 4096 x 2 x 11008 bf16, past 2^31 elements at 48 layers; at 2 layers
+    the embedding table is larger, but its 64000 rows would make 64000 plain
+    slices) through its optimizer's kernel, as the
     fit calls it: once in place, at the fit's lr * c and lambda, with a real
     gradient (one backward of the mean token loss at the fit's final state
     for that leaf alone, on a fresh batch). The result is held against the
@@ -967,7 +1026,8 @@ def check_fit_leaf(mods, gu_ref, flush, rep, spec):
     lr = float(np.float32(spec.lr) * np.float32(spec.workers))  # the fit's lr * c
     params, gstate = rep.model, rep.state
     leaves = tree_leaves(params)
-    i = max(range(len(leaves)), key=lambda j: leaves[j].numel())
+    i = max((j for j in range(len(leaves)) if leaves[j].dim() >= 3),
+            key=lambda j: leaves[j].numel())
     grad_at = gstate.w_stale if gcfg.needs_stale else params
     at = list(tree_leaves(grad_at))
     at[i] = at[i].detach().requires_grad_()
@@ -1544,6 +1604,453 @@ def dist_live(data, dmods, counters, ExperimentSpec, Trainer):
     return res
 
 
+# ------------------------------------------------- checkpoint and resilience
+
+INT8_POOL_BAR = 0.56      # the reference's int8 cache-bytes bar (tests/test_kvquant.py)
+INT8_REL_BAR = 0.05       # the reference's int8-vs-native logit bar (tests/test_kvquant.py)
+CKPT_STEPS = 20
+SENTINEL_STEPS = 10
+
+
+def cache_bytes(caches) -> int:
+    return sum(x.numel() * x.element_size() for layer in caches.values() for x in layer.values())
+
+
+def profile_int8(engine, serve, cfg, rng, flush, steps: int = 8):
+    """torch.profiler over `steps` decode-only steps of the int8 engine with
+    all 8 slots busy (prompts of 1024 tokens), every dequantize_kv call inside
+    a record_function range: the device time of the kernels each range
+    launched (the dequantize pass) against the step's device time, beside
+    flash_decode's; and the pass alone (48 layers x k and v of the 8-slot
+    pool) timed with CUDA events."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import kvquant
+
+    real = kvquant.dequantize_kv
+
+    def traced(q, scale, dtype):
+        with record_function("dequantize_kv"):
+            return real(q, scale, dtype)
+
+    for _ in range(engine.max_batch):
+        engine.submit(serve.Request(rng.integers(0, cfg.vocab_size, 1024).tolist(),
+                                    max_new_tokens=steps + 4))
+    engine.step()  # admits all 8, then one decode step
+    torch.cuda.synchronize()
+    with mock.patch.object(kvquant, "dequantize_kv", traced), \
+            profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    engine.run()
+    # the record_function range also shows on the device side, as its own
+    # span: left out, or the step's device time counts the pass twice
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.key != "dequantize_kv"]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    decode_ms = sum(e.self_device_time_total for e in kernels
+                    if "decode_mma" in e.key) / 1e3 / steps
+    ranges = [e for e in prof.events()
+              if e.name == "dequantize_kv" and e.device_type.name == "CPU"]
+    deq_ms = sum(e.device_time_total for e in ranges) / 1e3 / steps
+    layers = [c for c in engine.caches.values() if "k_scale" in c]
+
+    def dequantize_pass():
+        for c in layers:
+            for j in range(c["k"].shape[0]):
+                real(c["k"][j], c["k_scale"][j], cfg.dtype)
+                real(c["v"][j], c["v_scale"][j], cfg.dtype)
+
+    pass_ms = time_ms(dequantize_pass, 5, flush)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"phase": "profile_int8", "decode_steps": steps, "active_slots": engine.max_batch,
+            "wall_ms_per_step": wall_ms / steps, "device_ms_per_step": dev_ms,
+            "device_busy_share": dev_ms * steps / wall_ms,
+            "dequantize_ranges": len(ranges),
+            "dequantize_ms_per_step": deq_ms, "dequantize_share": deq_ms / dev_ms,
+            "flash_decode_ms_per_step": decode_ms,
+            "dequantize_pass_timed_ms": pass_ms,
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "ms_per_step": e.self_device_time_total / 1e3 / steps}
+                            for e in top]}
+
+
+def parity_int8(T, L, refs, cfg, dev, seed):
+    """yi-9b at full width, 4 layers, its own weights: a 1000-token prefill
+    and 8 decode steps with the native cache (greedy), then the same with the
+    int8 cache teacher-forced on the native run's tokens, through the
+    kernels and through their plain versions."""
+    attention_ref, decode_ref, _ = refs
+    cfg4 = cfg.replace(n_layers=4)
+    q4 = cfg4.replace(kv_cache_dtype="int8")
+    params = T.model_init(torch.Generator(device=dev).manual_seed(seed + 1), cfg4, dev)
+    rng = np.random.default_rng(seed + 1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1000))).to(dev)
+
+    def run(c, forced=None):
+        logits, caches = T.prefill(params, {"tokens": prompt}, c, total_len=1008)
+        out, toks = [logits.float()], []
+        for i in range(8):
+            tok = logits.argmax(-1)[:, None] if forced is None else forced[i]
+            toks.append(tok)
+            t = torch.tensor([1000 + i], dtype=torch.int32, device=dev)
+            logits, caches = T.decode_step(params, caches, tok, t, c)
+            out.append(logits.float())
+        return torch.stack(out)[:, 0], toks
+
+    native, toks = run(cfg4)
+    q, _ = run(q4, toks)
+    with mock.patch.object(L, "flash_attention", lambda q_, k, v, causal, window: attention_ref(
+            q_, k, v, causal=causal, window=window).to(q_.dtype)), \
+         mock.patch.object(L, "flash_decode", lambda q_, kc, vc, cl: decode_ref(
+            q_, kc, vc, cl).to(q_.dtype)):
+        plain, _ = run(q4, toks)
+    gap = (native - q).abs()
+    rel = (gap.max() / native.abs().max()).item()
+    top2 = native.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decisive = margin > 2 * gap.max(dim=-1).values
+    agree = bool((native.argmax(-1) == q.argmax(-1))[decisive].all())
+    plain_err = (q - plain).abs().max().item()
+    res = {"phase": "parity_int8", "arch": cfg4.name, "n_layers": 4, "prefill_len": 1000,
+           "decode_steps": 8, "max_rel_logit_gap": rel, "rel_bar": INT8_REL_BAR,
+           "decisive_steps": int(decisive.sum()), "decisive_argmax_equal": agree,
+           "argmax_agree_all": (native.argmax(-1) == q.argmax(-1)).float().mean().item(),
+           "top2_margin": margin.tolist(), "max_abs_gap_per_step": gap.max(dim=-1).values.tolist(),
+           "kernel_vs_plain_max_abs_err": plain_err, "plain_bar": PARITY_BAR,
+           "logit_absmax": native.abs().max().item()}
+    if not (torch.isfinite(q).all() and rel < INT8_REL_BAR and decisive.any() and agree
+            and plain_err <= PARITY_BAR):
+        raise RuntimeError(f"parity_int8 failed its checks: {res}")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def ulp_gap(a_leaves, b_leaves, chunk: int = 1 << 26):
+    """(elements of bf16 trees `a` and `b` more than one bf16 ulp of b's apart,
+    bitwise equal). `b` may lie on the host: compared chunk by chunk on a's
+    device."""
+    over, bitwise = 0, True
+    for a, b in zip(a_leaves, b_leaves):
+        for x, y in zip(a.reshape(-1).split(chunk), b.reshape(-1).split(chunk)):
+            y = y.to(x.device)
+            if torch.equal(x, y):
+                continue
+            bitwise = False
+            d = (x.float() - y.float()).abs()
+            ulp = torch.exp2(torch.floor(torch.log2(y.float().abs().clamp(min=2**-126))) - 7)
+            over += int((d > ulp).sum())
+    return over, bitwise
+
+
+def state_tensors(params, gstate):
+    """Every tensor of a mesh train state: params, scores, previous losses,
+    w_stale, the optimizer's accumulators."""
+    from repro_torch.common import tree_leaves
+
+    opt = gstate.opt_state if isinstance(gstate.opt_state, dict) else {}
+    out = tree_leaves(params) + [gstate.score, gstate.prev_worker_loss, gstate.prev_avg_loss]
+    if isinstance(gstate.w_stale, dict):
+        out += tree_leaves(gstate.w_stale)
+    return out + [x for k in sorted(opt) if k != "t" for x in tree_leaves(opt[k])]
+
+
+def ckpt_spec(ExperimentSpec, seed, **kw):
+    """yi-9b at full width, 2 layers (0.87B params: params, w_stale and the f32
+    momentum make a 10.4 GB archive, bf16 stored as f32), DC-ASGD with
+    momentum at mesh_fits' momentum lr, constant."""
+    base = dict(backend="mesh", arch="yi_9b", reduced=False, mode="asgd", strategy="dc_asgd",
+                optimizer="momentum", lr=1e-3, model_overrides=(("n_layers", 2),),
+                seq_len=128, global_batch=8, workers=4, rho=10, steps=CKPT_STEPS,
+                schedule="constant", chunk_steps=4, seed=seed)
+    base.update(kw)
+    return ExperimentSpec(**base)
+
+
+def ckpt_mesh(mods, counters, gu_ref, flush, seed, root):
+    """Phase 21 (see the module docstring). Returns (its line, (c)'s report,
+    (b)/(c)'s checkpoint dir, the momentum kernel's leaf check)."""
+    Trainer, ExperimentSpec, gu_ops, M = mods
+    reset, read = counters
+    from repro_torch import checkpoint as C
+    from repro_torch.checkpoint import writer as W
+    from repro_torch.common import tree_leaves
+
+    d1, d2 = os.path.join(root, "b"), os.path.join(root, "d")
+    loop_s, write_s, sha_s, restore_s, sizes = [], [], [], [], []
+    disk = {"peak": 0}
+    real_save, real_write, real_sha = C.AsyncCheckpointer.save, W.write_archive, W.file_sha256
+    real_restore = C.restore_latest
+    restored = {}
+
+    def on_disk() -> int:
+        return sum(os.path.getsize(os.path.join(dp, f))
+                   for dp, _, fs in os.walk(root) for f in fs)
+
+    def timed_save(self, step, tree, block=False):
+        t0 = time.perf_counter()
+        out = real_save(self, step, tree, block)
+        loop_s.append(time.perf_counter() - t0)
+        return out
+
+    def timed_write(ckpt_dir, step, flat):
+        t0 = time.perf_counter()
+        path = real_write(ckpt_dir, step, flat)
+        write_s.append(time.perf_counter() - t0)
+        sizes.append(os.path.getsize(path))
+        disk["peak"] = max(disk["peak"], on_disk())
+        return path
+
+    def timed_sha(path, *a):
+        t0 = time.perf_counter()
+        out = real_sha(path, *a)
+        sha_s.append(time.perf_counter() - t0)
+        return out
+
+    def spy_restore(ckpt_dir, tree_like, attempts=8):
+        t0 = time.perf_counter()
+        step, snap = real_restore(ckpt_dir, tree_like, attempts)
+        torch.cuda.synchronize()
+        restore_s.append(time.perf_counter() - t0)
+        want = restored["want"]
+        got = state_tensors(snap["params"], snap["gstate"])
+        restored["bitwise"] = (len(got) == len(want)
+                               and all(torch.equal(a, b) for a, b in zip(got, want))
+                               and snap["gstate"].step == restored["step"]
+                               and int(snap["data"]["cursor"]) == restored["step"])
+        return step, snap
+
+    def fit(spec, steps_run, **kw):
+        reset()
+        rep = Trainer.from_spec(spec).fit(**kw)     # device="cuda"
+        torch.cuda.synchronize()
+        launches = read()
+        n = len(tree_leaves(rep.model))
+        want = {k: 0 for k in launches}
+        want["guided_momentum_update"] = n * steps_run
+        if launches != want or rep.n_steps != steps_run:
+            raise RuntimeError(f"ckpt_mesh: {rep.n_steps} steps, launches {launches} != {want}")
+        return rep
+
+    def term_at_7(step, m, params):
+        if step == 7:  # the end of the second chunk of 4
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    total = {}
+    with mock.patch.object(C.AsyncCheckpointer, "save", timed_save), \
+            mock.patch.object(W, "write_archive", timed_write), \
+            mock.patch.object(W, "file_sha256", timed_sha), \
+            mock.patch.object(C, "restore_latest", spy_restore):
+        rep_a = fit(ckpt_spec(ExperimentSpec, seed), CKPT_STEPS)
+        # (d) before (b) and (c): its directory is gone before theirs fills,
+        # so at most 3 archives are on disk at once (keep_last 2 prunes after
+        # the third is written)
+        spec_d = ckpt_spec(ExperimentSpec, seed, ckpt_dir=d2, ckpt_every=10, keep_last=2)
+        rep_d = fit(spec_d, 8, on_step=term_at_7)
+        if not (rep_d.interrupted and C.latest_step(d2) == 8):
+            raise RuntimeError(f"ckpt_mesh: SIGTERM at step 7 gave interrupted="
+                               f"{rep_d.interrupted}, latest {C.latest_step(d2)}")
+        restored.update(want=state_tensors(rep_d.model, rep_d.state), step=8)
+        del rep_d
+        rep_e = fit(spec_d, 12, resume=True)
+        total["d_restore_bitwise"] = restored["bitwise"]
+        del restored["want"]
+        shutil.rmtree(d2)
+        spec_ck = ckpt_spec(ExperimentSpec, seed, ckpt_dir=d1, ckpt_every=10, keep_last=2)
+        rep_b = fit(spec_ck, 10, steps=10)
+        restored.update(want=state_tensors(rep_b.model, rep_b.state), step=10)
+        rep_c = fit(spec_ck, 10, resume=True)
+        total["c_restore_bitwise"] = restored["bitwise"]
+        del rep_b, restored["want"]
+    a_leaves = tree_leaves(rep_a.model)
+    c_over, c_bitwise = ulp_gap(tree_leaves(rep_c.model), a_leaves)
+    e_over, e_bitwise = ulp_gap(tree_leaves(rep_e.model), a_leaves)
+    n_leaves = len(a_leaves)
+    sp = ckpt_spec(ExperimentSpec, seed)
+    res = {"phase": "ckpt_mesh", "arch": sp.model_config().name,
+           "n_layers": sp.model_config().n_layers, "mode": sp.mode, "strategy": sp.strategy,
+           "optimizer": sp.optimizer, "lr": sp.lr, "steps": CKPT_STEPS,
+           "chunk_steps": 4, "ckpt_every": 10, "keep_last": 2, "param_leaves": n_leaves,
+           "n_params": sum(x.numel() for x in a_leaves),
+           "restore_bitwise": {"c_from_b": total["c_restore_bitwise"],
+                               "d_resume_from_sigterm": total["d_restore_bitwise"]},
+           "c_past_one_ulp_of_a": c_over, "c_bitwise_with_a": c_bitwise,
+           "d_past_one_ulp_of_a": e_over, "d_bitwise_with_a": e_bitwise,
+           "sigterm_snapshot_step": 8,
+           "launches": {"guided_momentum_update": n_leaves * (CKPT_STEPS + 10 + 10 + 8 + 12)},
+           "snapshots": len(sizes), "snapshot_bytes": sizes,
+           "loop_s_per_snapshot": loop_s, "writer_write_s": write_s, "writer_sha256_s": sha_s,
+           "restore_s": restore_s, "bytes_written": sum(sizes), "peak_bytes_on_disk": disk["peak"],
+           "final_losses": {"a": rep_a.final_loss, "c": rep_c.final_loss, "d": rep_e.final_loss}}
+    if not (total["c_restore_bitwise"] and total["d_restore_bitwise"] and c_over == 0
+            and e_over == 0 and all(np.isfinite(list(res["final_losses"].values())))):
+        raise RuntimeError(f"ckpt_mesh failed its checks: {res}")
+    leaf = check_fit_leaf(mods, gu_ref, flush, rep_a, sp)
+    res["largest_leaf"] = leaf
+    del rep_a, rep_e, a_leaves
+    torch.cuda.empty_cache()
+    return res, rep_c, d1, leaf
+
+
+def serve_ckpt(T, serve, counters, rep_c, ckpt_dir, seed):
+    """Phase 22 (see the module docstring)."""
+    reset, read, _ = counters
+    from repro_torch.common import tree_leaves
+
+    t0 = time.perf_counter()
+    eng = serve.ServeEngine.from_checkpoint(ckpt_dir, max_batch=8, max_len=2112)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    params_bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(eng.params),
+                                                           tree_leaves(rep_c.model)))
+    live = serve.ServeEngine(rep_c.model, eng.cfg, max_batch=8, max_len=2112)
+    rng = np.random.default_rng(seed + 5)
+    lens = rng.integers(128, 2049, 16)
+    gens = rng.integers(32, 65, 16)
+    prompts = [rng.integers(0, eng.cfg.vocab_size, int(n)).tolist() for n in lens]
+
+    def requests():
+        return [serve.Request(p, max_new_tokens=int(g)) for p, g in zip(prompts, gens)]
+
+    reset()
+    comps = eng.run(requests())
+    launches = read()
+    stats = eng.stats()
+    want, _ = path_launches(T, eng.cfg, stats["prefill_calls"], stats["decode_steps"])
+    tokens_ckpt = {c.request_id: c.tokens for c in comps}
+    tokens_live = {c.request_id: c.tokens for c in live.run(requests())}
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", "yi-9b",
+                          "--ckpt-dir", ckpt_dir, "--requests", "4", "--gen", "8"],
+                         cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
+    res = {"phase": "serve_ckpt", "arch": eng.cfg.name, "n_layers": eng.cfg.n_layers,
+           "restore_s": restore_s, "params_bitwise": params_bitwise,
+           "requests": 16, "tokens_equal": tokens_ckpt == tokens_live,
+           "prefill_calls": stats["prefill_calls"], "decode_steps": stats["decode_steps"],
+           "decode_tok_s": stats["tokens_per_s"],
+           "launches": {k: v for k, v in launches.items() if v},
+           "cli_rc": cli.returncode, "cli_s": time.perf_counter() - t0,
+           "cli_stdout_tail": cli.stdout.strip().splitlines()[-4:]}
+    if not (params_bitwise and res["tokens_equal"] and launches == want
+            and eng.cfg.n_layers == 2 and cli.returncode == 0):
+        raise RuntimeError(f"serve_ckpt failed its checks: {res}; want {want}; "
+                           f"cli stderr {cli.stderr[-2000:]}")
+    del eng, live
+    torch.cuda.empty_cache()
+    return res
+
+
+def bits_digest(tensors, weights):
+    """A 64-bit weighted sum of every tensor's bit patterns (odd random
+    weights, integer arithmetic modulo 2^64): equal digests mean equal bits
+    but for a 2^-48 chance. Computed on the device, chunk by chunk."""
+    out = []
+    n = weights.numel()
+    for t in tensors:
+        bits = t.reshape(-1).view({2: torch.int16, 4: torch.int32}[t.element_size()])
+        s = torch.zeros((), dtype=torch.int64, device=t.device)
+        for c in bits.split(n):
+            s += (c.to(torch.int64) * weights[:c.numel()]).sum()
+        out.append(s)
+    return torch.stack(out).cpu()
+
+
+def sentinel_mesh(mods, counters, seed, dev):
+    """Phase 23 (see the module docstring)."""
+    Trainer, ExperimentSpec, _, _ = mods
+    reset, read = counters
+    from repro_torch import resilience
+    from repro_torch.common import tree_leaves
+
+    spec = ExperimentSpec(backend="mesh", arch="yi_9b", reduced=False, mode="ssgd",
+                          strategy="guided_fused", lr=1e-2, workers=4, rho=10, seq_len=128,
+                          global_batch=8, steps=SENTINEL_STEPS, schedule="constant", seed=seed)
+    runs = {"unguarded": spec, "finite": spec.replace(sentinel="finite"),
+            "full": spec.replace(sentinel="full"),
+            "full_divergent": spec.replace(sentinel="full", lr=5000.0)}
+    weights = torch.randint(-2**62, 2**62, (1 << 26,), dtype=torch.int64, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(seed)) | 1
+    seen, watch = {}, {"prev": None, "first_rejected": None, "unchanged": None}
+    real_wrap = resilience.wrap_step_sentinel
+
+    def spy_wrap(step_fn, level, factor):
+        guarded = real_wrap(step_fn, level, factor)
+
+        def spy(params, gstate, batch):
+            p, g, m = guarded(params, gstate, batch)
+            seen["gstate"] = g
+            return p, g, m
+
+        return spy
+
+    def on_step(step, m, params):
+        g = seen["gstate"]
+        now = (bits_digest(state_tensors(params, g), weights), g.step)
+        if m["rejected"] and watch["first_rejected"] is None:
+            watch["first_rejected"] = step
+            prev = watch["prev"]
+            watch["unchanged"] = (prev is not None and torch.equal(now[0], prev[0])
+                                  and now[1] == prev[1])
+        watch["prev"] = now
+
+    lines, host, peaks = {}, None, {}
+    for name, sp in runs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        with mock.patch.object(resilience, "wrap_step_sentinel", spy_wrap):
+            rep = Trainer.from_spec(sp).fit(on_step=on_step if name == "full_divergent" else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        leaves = tree_leaves(rep.model)
+        want = {k: 0 for k in launches}
+        want["guided_sgd_update"] = len(leaves) * SENTINEL_STEPS
+        line = {"lr": sp.lr, "sentinel": sp.sentinel, "wall_s": wall,
+                "steps_per_s": rep.steps_per_s, "max_memory_allocated_gb": peaks[name],
+                "resilience": rep.resilience, "losses": [h["loss"] for h in rep.history],
+                "launches": {"guided_sgd_update": launches["guided_sgd_update"]},
+                "param_leaves": len(leaves)}
+        if launches != want:
+            raise RuntimeError(f"sentinel_mesh {name}: launches {launches} != {want}")
+        if name == "unguarded":
+            host = [x.cpu() for x in leaves]
+        elif name in ("finite", "full"):
+            over, bitwise = ulp_gap(leaves, host)
+            line.update(past_one_ulp_of_unguarded=over, bitwise_with_unguarded=bitwise)
+            if over or rep.resilience["rejected_steps"] != 0:
+                raise RuntimeError(f"sentinel_mesh {name}: {line}")
+        else:
+            line.update(all_finite=all(bool(torch.isfinite(x).all()) for x in leaves),
+                        first_rejected_step=watch["first_rejected"],
+                        state_unchanged_at_first_rejection=watch["unchanged"])
+            if not (rep.resilience["rejected_steps"] >= 1 and line["all_finite"]
+                    and watch["unchanged"]):
+                raise RuntimeError(f"sentinel_mesh {name}: {line}")
+        lines[name] = line
+        del rep, leaves
+    del host, weights
+    torch.cuda.empty_cache()
+    res = {"phase": "sentinel_mesh", "arch": spec.model_config().name,
+           "n_layers": spec.model_config().n_layers, "fit": "gSSGD",
+           "optimizer": "sgd", "steps": SENTINEL_STEPS, "seq_len": 128, "global_batch": 8,
+           "workers": 4, "runs": lines,
+           "finite_peak_over_unguarded_gb": peaks["finite"] - peaks["unguarded"],
+           "full_peak_over_unguarded_gb": peaks["full"] - peaks["unguarded"],
+           "launches": {"guided_sgd_update": sum(r["launches"]["guided_sgd_update"]
+                                                 for r in lines.values())}}
+    if res["finite_peak_over_unguarded_gb"] > 1.0 or peaks["full"] >= 80:
+        raise RuntimeError(f"sentinel_mesh memory: {res}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1727,16 +2234,58 @@ def main(argv=None) -> int:
     emit({"phase": "dist_total", "seconds": time.perf_counter() - t0,
           "launches": dist_launches})
 
+    # checkpoint and resilience: the int8 cache served and held against the
+    # native one, mesh snapshots with resume and the SIGTERM drain, serving
+    # warm-started from a snapshot, and the divergence sentinel
+    t0 = time.perf_counter()
+    icfg = cfg.replace(kv_cache_dtype="int8")
+    params, init_s = init_model(T, icfg, dev, args.seed)
+    served_int8 = serve_main_path(T, serve, counters, icfg, params, args.seed,
+                                  phase="serve_int8",
+                                  profile=lambda *a: profile_int8(*a, flush=flush))
+    del params
+    torch.cuda.empty_cache()
+    pool = {c.kv_cache_dtype: cache_bytes(T.init_caches(c, 8, 2048 + 64, "meta"))
+            for c in (cfg, icfg)}
+    served_int8.update(init_s=init_s, pool_cache_bytes=pool["int8"],
+                       native_pool_cache_bytes=pool["native"],
+                       pool_bytes_ratio=pool["int8"] / pool["native"],
+                       pool_bytes_bar=INT8_POOL_BAR)
+    emit(served_int8)
+    if pool["int8"] > INT8_POOL_BAR * pool["native"]:
+        raise RuntimeError(f"serve_int8: pool bytes {pool}")
+    emit(parity_int8(T, L, refs, cfg, dev, args.seed))
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        emit({"phase": "ckpt_disk", "dir": root,
+              "free_bytes": shutil.disk_usage(root).free})
+        ckpt_run, rep_c, ckpt_dir, ckpt_leaf = ckpt_mesh(mesh_mods, counters[:2], gu_ref, flush,
+                                                         args.seed, root)
+        emit(ckpt_run)
+        serve_ckpt_run = serve_ckpt(T, serve, counters, rep_c, ckpt_dir, args.seed)
+        emit(serve_ckpt_run)
+        del rep_c
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    sentinel_run = sentinel_mesh(mesh_mods, counters[:2], args.seed, dev)
+    emit(sentinel_run)
+    emit({"phase": "resilience_total", "seconds": time.perf_counter() - t0})
+
     # one entry per kernel and serve path: that path's launches beside the
     # numbers measured at the shape that path gives the kernel
     entries = []
     main_scan["variant"] = "smem_ring"
+    # serve_int8 and serve_ckpt give the attention kernels yi-9b's serve shapes
+    # (flash_decode reads the int8 path's dequantized bf16 scratch)
+    for by_path in (main_attn, main_dec):
+        by_path["serve_int8"] = by_path["serve_ckpt"] = by_path["serve"]
     for name, replaces, by_path in (
             ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:27", main_attn),
             ("flash_decode", "src/repro/kernels/flash_decode/kernel.py:22", main_dec),
             ("selective_scan", "src/repro/kernels/selective_scan/kernel.py:21",
              {"serve_hybrid": main_scan})):
-        for run in (served, hybrid):
+        for run in (served, hybrid, served_int8, serve_ckpt_run):
             if run["phase"] not in by_path:
                 continue
             c = by_path[run["phase"]]
@@ -1760,6 +2309,13 @@ def main(argv=None) -> int:
             runs.append(("dist", None, main_dist[name], dist_launches[name]))
         if name in live["launches"]:
             runs.append(("dist_live", live["fit"], main_dist[name], live["launches"][name]))
+        if name in ckpt_run["launches"]:
+            runs.append(("ckpt_mesh", "DC-ASGD-momentum-2L", ckpt_leaf,
+                         ckpt_run["launches"][name]))
+        if name in sentinel_run["launches"]:
+            gsgd = next(r for r in mesh_runs if r["fit"] == "gSSGD")
+            runs.append(("sentinel_mesh", "gSSGD-48L", gsgd["largest_leaf"],
+                         sentinel_run["launches"][name]))
         for path, fit, c, launches in runs:
             entries.append({"name": name, "variant": "simt", "route": "cuda",
                             "source": GUIDED_SRC, "replaces": replaces, "path": path,

@@ -1,12 +1,29 @@
-"""Chief-side snapshots of the async parameter server (the dist half of
+"""Full-state training snapshots and the chief's snapshots (port of
 `repro.checkpoint.state`).
 
-A snapshot is a flat dict of host arrays under one "dist" entry: the
-authoritative weights, the store version, the observed staleness sequence,
-and for rollback-capable stores the optimizer accumulator and the current
-lr scale. The archive keys are the reference's (`['dist']/['W']`), so a
-snapshot written by either package restores in the other. The mesh
-trainer's full-state snapshots are not ported yet.
+A checkpoint of the mesh trainer is not just the parameters: the guided
+compensation is stateful — consistency scores accumulated over the current
+rho-window, the `w_stale` copy the ASGD staleness model compensates against,
+the inner optimizer accumulators and any strategy-owned `extra`. A snapshot
+therefore covers
+
+    {"params": <model tree>,
+     "gstate": <GuidedState: step, score, prev losses, w_stale, opt_state, extra>,
+     "data":   {"cursor": <batches consumed>}}
+
+and its archive keys are the reference's (`['gstate']/.opt_state/['m']/...`),
+so a snapshot written by either package restores in the other. The data
+cursor is the stream position: the synthetic corpus is a deterministic
+function of (seed, number of draws), so replaying `cursor` draws on resume
+reproduces the batches exactly.
+
+The chief's snapshot (`dist_snapshot`) is a flat dict of host arrays under
+one "dist" entry: the authoritative weights, the store version, the
+observed staleness sequence, and for rollback-capable stores the optimizer
+accumulator and the current lr scale.
+
+The reference's `train_state_shardings` (restore onto another mesh) waits
+for sharding (ROADMAP Queue 1 item 11): the port restores onto one device.
 """
 from __future__ import annotations
 
@@ -16,11 +33,92 @@ import numpy as np
 
 from repro_torch.checkpoint.npz import (
     CorruptCheckpointError,
+    _into,
+    _items,
+    _map,
+    _open,
+    _read,
     latest_step,
     manifest_entries,
+    restore,
     step_path,
     verify_entry,
 )
+
+
+def snapshot(params, gstate, cursor: int) -> dict:
+    """The canonical full-state snapshot tree (also the restore template:
+    build it from a freshly initialized train state and restore into it)."""
+    return {
+        "params": params,
+        "gstate": gstate,
+        "data": {"cursor": np.asarray(cursor, np.int64)},
+    }
+
+
+def spec_meta(spec) -> dict:
+    """Manifest metadata recorded next to every snapshot — enough to rebuild
+    the model config (ServeEngine.from_checkpoint) and to see what run a
+    checkpoint dir belongs to."""
+    return {
+        "arch": spec.arch,
+        "reduced": spec.reduced,
+        "model_overrides": [list(kv) for kv in spec.model_overrides],
+        "mode": spec.mode,
+        "strategy": spec.strategy,
+        "optimizer": spec.optimizer,
+        "seed": spec.seed,
+        "steps": spec.steps,
+    }
+
+
+def model_config_from_manifest(ckpt_dir: str, step: int = None):
+    """Rebuild the ModelConfig a snapshot was trained under from the manifest
+    metadata (`spec_meta`), through the port's `configs.get_config` (which
+    raises for an arch the port does not have). Raises if the manifest
+    records no arch (e.g. a hand-written dir)."""
+    from repro_torch.checkpoint.writer import manifest_meta
+    from repro_torch.configs import get_config
+
+    meta = manifest_meta(ckpt_dir, step)
+    if "arch" not in meta:
+        raise ValueError(
+            f"checkpoint manifest in {ckpt_dir} records no arch metadata; "
+            f"pass the model config explicitly")
+    cfg = get_config(meta["arch"])
+    if meta.get("reduced"):
+        cfg = cfg.reduced()
+    overrides = meta.get("model_overrides") or []
+    if overrides:
+        cfg = cfg.replace(**{k: v for k, v in overrides})
+    return cfg
+
+
+def restore_train_state(ckpt_dir: str, step: int, template: dict) -> dict:
+    """Restore a full snapshot into `template` (a `snapshot()` of a freshly
+    initialized train state, whose tensors are written in place)."""
+    return restore(ckpt_dir, step, template)
+
+
+def restore_subtree(ckpt_dir: str, step: int, entry: str, template):
+    """Restore ONE top-level entry of a snapshot archive (e.g. entry="params"
+    into a model tree, written in place) without reading the rest — how a
+    serving process warm-starts from a training checkpoint. Also accepts v1
+    archives that stored `{entry: tree}` directly (the key paths coincide)."""
+    path = step_path(ckpt_dir, step)
+    prefix = f"[{entry!r}]"
+    with _open(path, step) as data:
+        available = set(data.files)
+        keys = {rest: f"{prefix}/{rest}" if rest else prefix for rest, _ in _items(template)}
+        missing = sorted(k for k in keys.values() if k not in available)
+        if missing:
+            have = sorted(k for k in available if k.startswith(prefix))[:8]
+            raise ValueError(
+                f"checkpoint {path} has no {entry!r} subtree matching the template: "
+                f"missing {missing[:8]}; archive has {have or 'no such keys'}")
+        hint = " — was this snapshot written under a different model config?"
+        return _map(lambda rest, leaf: _into(leaf, _read(data, path, step, keys[rest]), path,
+                                              keys[rest], hint), template)
 
 
 def dist_snapshot(W, version: int, staleness, r=None, lr_scale: float = 1.0) -> dict:

@@ -1,10 +1,11 @@
-"""Async checkpoint writer (a copy of `repro.checkpoint.writer`'s
-`AsyncCheckpointer`): serialization off the caller's thread, atomic
-MANIFEST.json + retention.
+"""Checkpoint writers (port of `repro.checkpoint.writer`): the synchronous
+`save_train_state` and the `AsyncCheckpointer`, serialization off the
+caller's thread, atomic MANIFEST.json + retention.
 
-  * `save(step, tree)` — caller thread — takes a nested dict of host arrays
-    (the dist chief copies its device state to the host first, under its
-    lock) and enqueues the flat archive;
+  * `save(step, tree)` — caller thread — copies every tensor of the snapshot
+    tree to the host (`npz._flatten`; `.cpu()` returns once the copy is
+    done, so the next train step may update the live tensors in place as
+    soon as `save` returns) and enqueues the flat archive;
   * a single background thread serializes (atomic tmp+rename npz), updates
     MANIFEST.json atomically with the archive's SHA-256, and prunes archives
     beyond `keep_last`.
@@ -13,8 +14,7 @@ MANIFEST.json records every retained step with its file and metadata, so a
 reader never observes a pointer to a half-written archive and `latest_step`
 survives any kill point. Writer errors are captured and re-raised on the
 next save/wait/close — a full disk fails the run instead of silently
-dropping snapshots. The mesh trainer's synchronous `save_train_state` is not
-ported yet.
+dropping snapshots.
 """
 from __future__ import annotations
 
@@ -48,8 +48,8 @@ def _write_manifest(ckpt_dir: str, man: dict) -> None:
 def _update_manifest(ckpt_dir: str, step: int, fname: str, meta: dict,
                      keep_last: int, sha256: str = None) -> None:
     """Append/replace the entry for `step`, advance `latest`, prune beyond
-    `keep_last` (0 keeps everything). Called only from the writer thread, so
-    updates are serialized. `sha256` is the archive's
+    `keep_last` (0 keeps everything). Called only from the writer thread (or
+    the sync path), so updates are serialized. `sha256` is the archive's
     content hash (npz.file_sha256) recorded for restore-time verification."""
     man = read_manifest(ckpt_dir) or {"version": 2, "latest": None, "ckpts": []}
     man["ckpts"] = [c for c in man["ckpts"] if c["step"] != step]
@@ -70,11 +70,35 @@ def _update_manifest(ckpt_dir: str, step: int, fname: str, meta: dict,
             pass
 
 
+def manifest_meta(ckpt_dir: str, step=None) -> dict:
+    """Metadata recorded with `step` (default: the latest entry)."""
+    man = read_manifest(ckpt_dir)
+    if man is None or not man.get("ckpts"):
+        raise FileNotFoundError(f"no {MANIFEST} with entries in {ckpt_dir}")
+    if step is None:
+        step = man["latest"]
+    for c in man["ckpts"]:
+        if c["step"] == step:
+            return c.get("meta", {})
+    raise ValueError(f"step {step} not in {ckpt_dir}/{MANIFEST}: "
+                     f"retained steps {[c['step'] for c in man['ckpts']]}")
+
+
+def save_train_state(ckpt_dir: str, step: int, tree, meta: dict = None,
+                     keep_last: int = 0) -> str:
+    """Synchronous full-state save: archive + manifest in the caller's
+    thread, for one-off snapshots outside a training loop."""
+    path = write_archive(ckpt_dir, step, _flatten(tree))
+    _update_manifest(ckpt_dir, step, os.path.basename(path), dict(meta or {}),
+                     keep_last, sha256=file_sha256(path))
+    return path
+
+
 class AsyncCheckpointer:
     """One writer thread + bounded handoff of host-side snapshots.
 
         ckpt = AsyncCheckpointer(dir, keep_last=3, meta={...})
-        ckpt.save(step, dist_snapshot(W, step, staleness))
+        ckpt.save(step, snapshot(params, gstate, step))   # the host copy only
         ...
         ckpt.close()                     # drain + join
 
@@ -100,15 +124,16 @@ class AsyncCheckpointer:
     # ------------------------------------------------------------- caller side
 
     def save(self, step: int, tree, block: bool = False) -> bool:
-        """Snapshot `tree` (a nested dict of host arrays) as `step`;
-        serialization happens on the writer thread. Returns False when
-        deduped (same step as the previous save)."""
+        """Snapshot `tree` as `step`. The copy to the host happens here
+        (caller thread, step boundary); serialization happens on the writer
+        thread. Returns False when deduped (same step as the previous
+        save)."""
         self._raise_pending()
         with self._lock:
             if step == self._last_step:
                 return False
             self._last_step = step
-        flat = _flatten(tree)
+        flat = _flatten(tree)  # every tensor copied to the host before return
         self._q.put((step, flat))
         if block:
             self.wait()

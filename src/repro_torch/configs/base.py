@@ -85,7 +85,7 @@ class ModelConfig:
     # ffn style: gated SwiGLU (llama lineage) vs plain GELU MLP (GPT/BERT)
     mlp_gated: bool = True
 
-    # KV-cache storage: "native" (compute dtype) | "int8" (not yet ported)
+    # KV-cache storage: "native" (compute dtype) | "int8" (models.kvquant)
     kv_cache_dtype: str = "native"
 
     # numerics

@@ -19,12 +19,14 @@ connection is dropped, so the worker dies with EOF and the supervisor
 respawns it. Every message a worker sends refreshes its heartbeat lease
 (when the launcher runs with `spec.dist_lease_s`), and `close()` reports
 any connection thread that outlives its join timeout instead of leaking it
-silently.
+silently. A peer that drops during the authentication handshake does not
+stop the accept thread.
 """
 from __future__ import annotations
 
 import threading
 import warnings
+from multiprocessing import AuthenticationError
 
 import numpy as np
 
@@ -61,8 +63,14 @@ class Chief:
         while True:
             try:
                 conn = self.listener.accept()
-            except OSError:
-                return  # listener closed
+            except (OSError, EOFError, AuthenticationError):
+                if self._stop.is_set():
+                    return  # listener closed
+                # a peer that dropped or failed during the handshake (a worker
+                # killed while connecting, a reset under load): keep
+                # accepting, or every later connection, close()'s wake-up
+                # included, waits forever for a challenge nobody sends
+                continue
             if self._stop.is_set():
                 conn.close()  # close()'s wake-up connection
                 return

@@ -55,10 +55,17 @@ def format_addr(addr: tuple) -> str:
     return f"{addr[0]}:{addr[1]}"
 
 
+# Connections the kernel queues while the chief's one accept thread runs a
+# handshake. multiprocessing's default is 1: with ten workers connecting at
+# once, a full queue drops a handshake's last ACK, and a worker can be left
+# for good in a connection the chief never sees, waiting for a challenge.
+BACKLOG = 128
+
+
 def listen(host: str = DEFAULT_HOST, port: int = 0, authkey: bytes = AUTHKEY) -> Listener:
     """Bind the chief's listener. port=0 picks an ephemeral port; the bound
     address is `listener.address`."""
-    return Listener((host, port), family="AF_INET", authkey=authkey)
+    return Listener((host, port), family="AF_INET", backlog=BACKLOG, authkey=authkey)
 
 
 def connect(addr: tuple, authkey: bytes = AUTHKEY, timeout: float = 20.0,

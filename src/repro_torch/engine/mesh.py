@@ -90,7 +90,8 @@ def build_train_step(cfg, gcfg: G.GuidedConfig, opt: Optimizer, lr_schedule,
     mesh); n_micro > 1 accumulates f32 gradients over microbatches. The
     params are updated in place and returned; `metrics` holds device
     scalars ("loss", "worker_loss_var", "corr_weight_sum") and the host's
-    "lr" and "step"."""
+    "lr" and "step". `train_step(..., screen=s)` adds the host's "rejected"
+    (see the module docstring); without a screen the step is unchanged."""
     strategy = resolve_strategy(gcfg, strategy)
     c = n_workers or 1
 
@@ -142,43 +143,52 @@ def build_train_step(cfg, gcfg: G.GuidedConfig, opt: Optimizer, lr_schedule,
 
         return at
 
-    def train_step(params, gstate: G.GuidedState, batch):
+    def train_step(params, gstate: G.GuidedState, batch, screen=None):
         step = gstate.step
         corr_w = strategy.correction_weights(gstate, c)
         grad_at = gstate.w_stale if gcfg.needs_stale else params
         grads, E_i, mean_loss = grads_and_losses(grad_at, batch, corr_w)
+        metrics = {
+            "loss": mean_loss,
+            "worker_loss_var": torch.var(E_i, unbiased=False),
+            "corr_weight_sum": torch.sum(corr_w),
+            "lr": lr_schedule(step),
+        }
+        out_of_place = screen is not None and screen.out_of_place
+        if screen is not None and not out_of_place and not screen.admit(
+                mean_loss, gstate.prev_avg_loss):
+            return params, gstate, {**metrics, "step": step, "rejected": 1}
 
-        lr = lr_schedule(step)
+        lr = metrics["lr"]
         # lr * c in float32, as the reference multiplies its f32 lr
         lr_eff = float(np.float32(lr) * np.float32(c)) if gcfg.mode != "seq" else lr
         if fused is not None:
             # the compensation rides inside the fused update as the lam fold
             # (identity for non-dc strategies: lam == 0)
             w_ref = gstate.w_stale if gcfg.needs_stale else params
-            params, opt_state = tree_fused_update(fused, opt.name, params, grads, w_ref,
-                                                  gstate.opt_state, lr_eff, fused_lam)
+            new_params, opt_state = tree_fused_update(fused, opt.name, params, grads, w_ref,
+                                                      gstate.opt_state, lr_eff, fused_lam,
+                                                      inplace=not out_of_place)
         else:
             grads = strategy.compensate_grads(grads, params, gstate)
             with torch.no_grad():
                 updates, opt_state = opt.update(grads, gstate.opt_state, params, lr_eff)
-                params = tree_add(params, updates)
+                new_params = tree_add(params, updates)
             del updates
         # the strategy's next extra state reads this step's grads; take it now
         # so the grads are freed before a correcting strategy's second backward
         extra = strategy.update_extra(gstate, grads)
         del grads
         if strategy.needs_correction:
-            params = strategy.correct(params, gstate, lr, weighted_grad_fn(batch))
+            new_params = strategy.correct(new_params, gstate, lr, weighted_grad_fn(batch))
+        if out_of_place and not screen.admit(mean_loss, gstate.prev_avg_loss, new_params):
+            return params, gstate, {**metrics, "step": step, "rejected": 1}
 
-        gstate = G.advance(gstate, gcfg, opt_state, params, E_i, mean_loss, extra=extra,
+        gstate = G.advance(gstate, gcfg, opt_state, new_params, E_i, mean_loss, extra=extra,
                            score=strategy.score(gstate, E_i, mean_loss))
-        metrics = {
-            "loss": mean_loss,
-            "worker_loss_var": torch.var(E_i, unbiased=False),
-            "corr_weight_sum": torch.sum(corr_w),
-            "lr": lr,
-            "step": gstate.step,
-        }
-        return params, gstate, metrics
+        metrics["step"] = gstate.step
+        if screen is not None:
+            metrics["rejected"] = 0
+        return new_params, gstate, metrics
 
     return train_step

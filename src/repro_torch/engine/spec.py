@@ -15,8 +15,7 @@ defaults and construction-time validation.
                      fields), with the resilience knobs of its live mode.
 
 `ckpt_dir`, `ckpt_every`, `keep_last` and `sentinel` are validated as the
-reference validates them; the dist chief honours them, the mesh fit still
-refuses them (mesh checkpoints and its sentinel come later).
+reference validates them; the mesh fit and the dist chief honour them.
 """
 from __future__ import annotations
 
@@ -66,12 +65,14 @@ DIST_MODES = ("replay", "live")
 # respawns it; "join" spawns an additional elastic worker (wid ignored).
 DIST_EVENT_OPS = ("kill", "restart", "join")
 
-# divergence-sentinel screening levels (repro_torch.resilience; the mesh fit
-# refuses any but "" until its sentinel is ported):
+# divergence-sentinel screening levels (repro_torch.resilience):
 #   ""       — off (the default)
-#   "finite" — reject non-finite gradients (NaN/Inf never reach W)
+#   "finite" — reject non-finite gradients (NaN/Inf never reach W); on the
+#              mesh, a step whose loss is not finite
 #   "full"   — "finite" plus a norm-explosion screen (vs a running norm EMA)
-#              on the chief
+#              on the chief; on the mesh, also a step that leaves a param
+#              leaf non-finite or whose loss spikes past factor x the last
+#              average loss
 SENTINELS = ("", "finite", "full")
 
 # algorithm names as printed in the paper's tables -> (mode, strategy, optimizer)
@@ -163,7 +164,8 @@ class ExperimentSpec:
     keep_last: int = 3             # manifest retention (0 -> keep everything)
     # --------------------------------- resilience (repro_torch.resilience)
     sentinel: str = ""             # SENTINELS level: "" | finite | full
-    sentinel_factor: float = 10.0  # norm explosion multiplier vs the norm EMA
+    sentinel_factor: float = 10.0  # spike/norm explosion multiplier vs the
+                                   # previous average loss (mesh) / norm EMA (dist)
     rollback: bool = False         # dist live: on post-apply divergence,
                                    # restore the last VERIFIED snapshot + lr
                                    # backoff instead of failing the run

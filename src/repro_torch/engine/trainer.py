@@ -56,6 +56,8 @@ class Report:
     warm_steps: int = 0        # mesh: steps outside those dispatches
     warm_time_s: float = 0.0   # mesh: wall time of the warm dispatches alone
     n_steps: int = 0           # server steps this fit ran (per seed)
+    start_step: int = 0        # mesh: step resumed from (0 = fresh run)
+    interrupted: bool = False  # mesh: SIGTERM cut the run short (state saved)
     staleness_hist: dict = dataclasses.field(default_factory=dict)
                                # dist: OBSERVED staleness -> count over every
                                # applied update (applied_version - read_version)
@@ -64,6 +66,9 @@ class Report:
                                # late, worker_exits, joins; with the
                                # resilience layer armed also rejections/
                                # rollbacks/supervisor counters)
+    resilience: dict = dataclasses.field(default_factory=dict)
+                               # mesh: sentinel outcome ({sentinel,
+                               # rejected_steps}) when spec.sentinel is set
 
     @property
     def final_loss(self) -> Optional[float]:
@@ -113,7 +118,9 @@ class Trainer:
         mesh: `data` is an iterable of batch dicts (None: the synthetic LM
         stream); `steps` overrides spec.steps; `on_step(step, metrics,
         params)` fires after every dispatch (see repro_torch.engine.trainloop);
-        keep_history=False keeps only the final step's record."""
+        keep_history=False keeps only the final step's record; resume=True
+        continues from the newest snapshot in spec.ckpt_dir (a fresh run
+        when there is none)."""
         t0 = time.perf_counter()
         if self.spec.backend == "mesh":
             from repro_torch.engine import trainloop

@@ -24,10 +24,24 @@ Contracts, as the reference's:
     `warm_steps` counts the steps outside them and `warm_time_s` is the
     wall time of those warm dispatches alone.
 
-Checkpointing (`spec.ckpt_dir`) and the divergence sentinel
-(`spec.sentinel`) are not ported yet (ROADMAP slice 5): the fit refuses them.
-The reference drains the in-flight chunk on SIGTERM only while it writes
-checkpoints, so the port's fit leaves SIGTERM alone until they come.
+Checkpoints (`spec.ckpt_dir`), as the reference's:
+
+  * a full-state snapshot (`repro_torch.checkpoint.snapshot`: params, the
+    whole GuidedState, the data cursor) every `ckpt_every` steps, at a chunk
+    boundary, and at the end; `AsyncCheckpointer.save` copies every tensor
+    to the host before it returns, so the next dispatch may update the live
+    tensors in place, and writes the archive on its own thread;
+  * `resume=True` restores the newest intact snapshot straight into the
+    freshly built state's tensors and replays the data cursor, so
+    train(N) == train(k) + resume(N - k) leaf for leaf;
+  * while it writes checkpoints (and only then, on the main thread) the fit
+    handles SIGTERM: the chunk in flight drains, the state is snapshotted at
+    its boundary, the fit returns `Report.interrupted=True`, and the
+    previous handler is back in force.
+
+The divergence sentinel (`spec.sentinel`) screens every step
+(`repro_torch.resilience.wrap_step_sentinel`); the count of rejected steps is
+read once, after the loop, into `Report.resilience`.
 """
 from __future__ import annotations
 
@@ -112,18 +126,18 @@ def fit(spec: ExperimentSpec, strategy, data=None, steps: Optional[int] = None,
     """The mesh backend's fit loop (what `Trainer.fit` dispatches to): the
     params drawn from `spec.seed` on `device`, `steps` (default spec.steps)
     train steps over `data` (an iterable of batch dicts) or the synthetic
-    LM stream. Returns a `Report`; see the module docstring for the chunk
-    and prefetch contracts."""
+    LM stream. Returns a `Report`; see the module docstring for the chunk,
+    prefetch, checkpoint and sentinel contracts."""
+    import signal
+    import sys
+    import threading
+
+    from repro_torch import checkpoint as C
     from repro_torch.data.prefetch import ChunkPrefetcher, batch_put, stack_blocks
     from repro_torch.engine import mesh as M
     from repro_torch.engine.trainer import Report
     from repro_torch.optim import for_run, get_optimizer
 
-    if spec.ckpt_dir or spec.sentinel or resume:
-        raise NotImplementedError(
-            "checkpointing, resume and the divergence sentinel (spec.ckpt_dir, "
-            "resume=True, spec.sentinel) are not yet ported to repro_torch "
-            "(ROADMAP slice 5: checkpoint and resilience)")
     device = torch.device(device)
     n_steps = steps or spec.steps
     cfg = spec.model_config()
@@ -144,11 +158,42 @@ def fit(spec: ExperimentSpec, strategy, data=None, steps: Optional[int] = None,
                                         strategy=strategy, device=device)
     step_fn = M.build_train_step(cfg, gcfg, opt, lr, n_micro=spec.micro,
                                  n_workers=c, strategy=strategy)
+    if spec.sentinel:
+        from repro_torch.resilience import wrap_step_sentinel
+
+        step_fn = wrap_step_sentinel(step_fn, spec.sentinel, spec.sentinel_factor)
     chunked = spec.chunk_steps > 1
     dispatch = build_chunk_step(step_fn) if chunked else step_fn
 
+    start_step = 0
+    if resume:
+        if not spec.ckpt_dir:
+            raise ValueError("fit(resume=True) needs spec.ckpt_dir to know "
+                             "where the snapshots live")
+        if C.latest_step(spec.ckpt_dir) is not None:
+            # the freshly built state is the restore template (same tree, so
+            # a checkpoint of another config fails loudly), written in place:
+            # no second train state is ever held
+            _, snap = C.restore_latest(spec.ckpt_dir, C.snapshot(params, gstate, 0))
+            params, gstate = snap["params"], snap["gstate"]
+            start_step = int(snap["data"]["cursor"])
+            del snap
+            if start_step > n_steps:
+                raise ValueError(
+                    f"checkpoint at step {start_step} is past this run's "
+                    f"n_steps={n_steps}; nothing to resume")
+
+    # constructed only once resume validation passed: a failed restore
+    # must not strand the writer thread
+    ckpt = None
+    if spec.ckpt_dir:
+        ckpt = C.AsyncCheckpointer(spec.ckpt_dir, keep_last=spec.keep_last,
+                                   meta=C.spec_meta(spec))
+
     batches = iter(data) if data is not None else synthetic_stream(spec, cfg, c)
-    sizes = chunk_schedule(0, n_steps, spec.chunk_steps, spec.ckpt_every)
+    for _ in range(start_step):  # replay the data cursor: the resumed steps
+        next(batches)            # see the unbroken run's batches
+    sizes = chunk_schedule(start_step, n_steps, spec.chunk_steps, spec.ckpt_every)
     source = stack_blocks(batches, sizes) if chunked else batches
     put = batch_put(device)
     prefetcher = None
@@ -156,9 +201,22 @@ def fit(spec: ExperimentSpec, strategy, data=None, steps: Optional[int] = None,
         prefetcher = ChunkPrefetcher(source, put=put)
         source = prefetcher
 
+    # SIGTERM while checkpointing: drain the chunk in flight, snapshot, return
+    stop = {"sig": None}
+    old_handler, installed = None, False
+    if ckpt is not None and threading.current_thread() is threading.main_thread():
+        def _on_term(signum, frame):
+            stop["sig"] = signum
+
+        # the previous handler can be None (installed from C): track
+        # installation separately so the restore still runs
+        old_handler = signal.signal(signal.SIGTERM, _on_term)
+        installed = True
+
     raw = []                   # (first_step, k, metrics) per dispatch
+    rejected = []              # the sentinel's per-dispatch "rejected" metrics
     m = None
-    done = 0
+    done = start_step
     compile_time_s = 0.0
     compiled_steps = 0         # steps covered by first dispatches of a size
     seen_sizes = set()
@@ -177,15 +235,44 @@ def fit(spec: ExperimentSpec, strategy, data=None, steps: Optional[int] = None,
                 compiled_steps += k
                 seen_sizes.add(k)
             done += k
+            if spec.sentinel:
+                rejected.append(m["rejected"])
             if keep_history:
                 raw.append((done - k, k, m))
             if on_step is not None:
                 on_step(done - 1, m, params)
+            if ckpt is not None and spec.ckpt_every and done % spec.ckpt_every == 0:
+                # the host copy happens here, at the chunk boundary, before
+                # the next dispatch updates these tensors; serialization is
+                # on the writer's thread
+                ckpt.save(done, C.snapshot(params, gstate, done))
+            if stop["sig"] is not None:
+                break
         _sync(device)
         warm_time_s = max(time.perf_counter() - t_loop - compile_time_s, 0.0)
     finally:
         if prefetcher is not None:
             prefetcher.close()
+        if installed:
+            # a None previous handler cannot be re-registered through
+            # signal.signal; SIG_DFL beats leaving our closure in place
+            signal.signal(signal.SIGTERM,
+                          old_handler if old_handler is not None else signal.SIG_DFL)
+        if ckpt is not None:
+            loop_failed = sys.exc_info()[0] is not None
+            try:
+                try:
+                    # final full-state snapshot (dedupes against a periodic
+                    # save that already covered `done`)
+                    if done > start_step or C.latest_step(spec.ckpt_dir) is None:
+                        ckpt.save(done, C.snapshot(params, gstate, done))
+                finally:
+                    ckpt.close()  # drain + join even if the save failed
+            except Exception:
+                # a training-loop exception outranks checkpoint teardown
+                # noise; surface the writer error only on a clean loop
+                if not loop_failed:
+                    raise
     if not keep_history and m is not None:
         last_k = m["loss"].shape[0] if chunked else 1
         raw = [(done - last_k, last_k, m)]
@@ -196,7 +283,13 @@ def fit(spec: ExperimentSpec, strategy, data=None, steps: Optional[int] = None,
     if not keep_history:
         history = history[-1:]
     final = dict(history[-1]) if history else {}
+    resilience = {}
+    if spec.sentinel:
+        resilience = {"sentinel": spec.sentinel,
+                      "rejected_steps": sum(int(torch.as_tensor(r).sum()) for r in rejected)}
     return Report(backend="mesh", spec=spec, history=history, final=final,
-                  model=params, state=gstate, n_steps=done,
+                  model=params, state=gstate, n_steps=done - start_step,
+                  start_step=start_step, interrupted=stop["sig"] is not None,
                   compile_time_s=compile_time_s, warm_time_s=warm_time_s,
-                  warm_steps=max(done - compiled_steps, 0))
+                  warm_steps=max(done - start_step - compiled_steps, 0),
+                  resilience=resilience)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch import kernels
-from repro_torch.common import tree_leaves
+from repro_torch.common import tree_leaves, tree_unflatten
 from repro_torch.kernels.guided_update import ref as R
 
 #: optimizers with a whole-update fused implementation (adagrad has none: the
@@ -218,20 +218,32 @@ def fused_update_for(name: str, *, beta: float = 0.9, nesterov: bool = False,
     return f
 
 
-def tree_fused_update(fused, name: str, params, grads, w_stale, opt_state, lr, lam):
-    """Apply a `fused_update_for` callable across a parameter tree, in place:
-    one call (one kernel launch on the card) per leaf, the new weights
-    written into `params` and the new accumulators into `opt_state`'s
-    leaves. Maps the optimizer's state layout ({} for sgd, {"m"}, {"r"},
-    {"m", "v", "t"} with a host int `t`) onto the per-leaf acc tuples.
-    Returns (params, new_opt_state): the same trees, adam's `t` advanced."""
+def tree_fused_update(fused, name: str, params, grads, w_stale, opt_state, lr, lam,
+                      inplace: bool = True):
+    """Apply a `fused_update_for` callable across a parameter tree: one call
+    (one kernel launch on the card) per leaf. In place (the default) the new
+    weights are written into `params` and the new accumulators into
+    `opt_state`'s leaves; with `inplace=False` both come back as new trees
+    and the inputs are left as they were. Maps the optimizer's state layout
+    ({} for sgd, {"m"}, {"r"}, {"m", "v", "t"} with a host int `t`) onto
+    the per-leaf acc tuples. Returns (params, new_opt_state), adam's `t`
+    advanced."""
     keys = {"sgd": (), "momentum": ("m",), "rmsprop": ("r",), "adam": ("m", "v")}[name]
     t = opt_state["t"] + 1 if name == "adam" else None
     accs = [tree_leaves(opt_state[k]) for k in keys]
+    new_w, new_accs = [], [[] for _ in keys]
     with torch.no_grad():
         for i, (w, g, ws) in enumerate(zip(tree_leaves(params), tree_leaves(grads),
                                            tree_leaves(w_stale))):
-            fused(w, g, ws, tuple(a[i] for a in accs), t, lr, lam, inplace=True)
+            w2, acc2 = fused(w, g, ws, tuple(a[i] for a in accs), t, lr, lam, inplace=inplace)
+            new_w.append(w2)
+            for lst, a in zip(new_accs, acc2):
+                lst.append(a)
+    # in place, these trees hold the input tensors themselves
+    params = tree_unflatten(params, new_w)
+    if keys:
+        opt_state = {**opt_state, **{k: tree_unflatten(opt_state[k], lst)
+                                     for k, lst in zip(keys, new_accs)}}
     if name == "adam":
         opt_state = {**opt_state, "t": t}
     return params, opt_state

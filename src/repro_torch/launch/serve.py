@@ -4,7 +4,9 @@ Submits synthetic requests to `repro_torch.serve.ServeEngine` on one device
 (`--device`, default cuda) with weights drawn from `--seed`, and prints
 per-request streams plus aggregate throughput. `--stagger` varies prompt and
 generation lengths across requests so slot recycling is visible;
-`--lockstep` runs the fixed-batch barriered baseline instead.
+`--lockstep` runs the fixed-batch barriered baseline instead. `--ckpt-dir`
+serves the params of a training snapshot instead of random weights; the
+config its manifest records takes the place of `--arch` / `--reduced`.
 
 Example (one H100, full-width yi-9b):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
@@ -12,6 +14,9 @@ Example (one H100, full-width yi-9b):
 On the CPU, at smoke-test size:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --reduced \
       --device cpu --batch 2 --prompt-len 16 --gen 8
+Warm start from a mesh fit's checkpoint directory:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+      --ckpt-dir <dir> --requests 4 --gen 8
 """
 from __future__ import annotations
 
@@ -43,17 +48,39 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=40)
     ap.add_argument("--lockstep", action="store_true",
                     help="run the fixed-batch barriered baseline instead")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="warm-start from a training checkpoint (full-state "
+                         "snapshot; only the params subtree is restored)")
+    ap.add_argument("--ckpt-step", type=int, default=0,
+                    help="checkpoint step to serve (default: latest manifest entry)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.ckpt_dir:
+        # the manifest's recorded config is authoritative for its snapshot:
+        # serving a reduced-trained checkpoint must not build the full-size
+        # model because a flag was forgotten
+        from repro_torch.checkpoint import model_config_from_manifest
+
+        try:
+            ckpt_cfg = model_config_from_manifest(args.ckpt_dir, args.ckpt_step or None)
+        except (FileNotFoundError, ValueError):
+            ckpt_cfg = None  # v1 dir / no metadata: trust the flags
+        if ckpt_cfg is not None:
+            if (ckpt_cfg.name, ckpt_cfg.n_layers, ckpt_cfg.d_model) != (
+                    cfg.name, cfg.n_layers, cfg.d_model):
+                print(f"using checkpoint config {ckpt_cfg.name} "
+                      f"(layers={ckpt_cfg.n_layers}, d_model={ckpt_cfg.d_model}) "
+                      f"from the manifest over the CLI flags")
+            cfg = ckpt_cfg
     if not cfg.supports_decode:
         raise SystemExit(f"{cfg.name} is encoder-only; no decode")
     device = torch.device(args.device)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = T.model_init(gen, cfg, device)
+    params = None if args.ckpt_dir else T.model_init(
+        torch.Generator(device=device).manual_seed(args.seed), cfg, device)
 
     n_req = args.requests or args.batch
     rng = np.random.default_rng(args.seed)
@@ -72,7 +99,16 @@ def main(argv=None):
         reqs.append(Request(prompt, max_new_tokens=gen_len, sampling=sp))
 
     max_len = max(args.prompt_len, max_prompt) + args.gen
-    engine = ServeEngine(params, cfg, max_batch=args.batch, max_len=max_len)
+    if args.ckpt_dir:
+        engine = ServeEngine.from_checkpoint(args.ckpt_dir, cfg, step=args.ckpt_step or None,
+                                             device=device, max_batch=args.batch,
+                                             max_len=max_len)
+        from repro_torch.checkpoint import latest_step
+
+        print(f"serving training snapshot step "
+              f"{args.ckpt_step or latest_step(args.ckpt_dir)} from {args.ckpt_dir}")
+    else:
+        engine = ServeEngine(params, cfg, max_batch=args.batch, max_len=max_len)
 
     if args.lockstep:
         comps, stats = lockstep_generate(engine, reqs)

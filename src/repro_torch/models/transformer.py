@@ -28,8 +28,16 @@ reference trains). With `cfg.remat == "full"` each super-block of the
 training forward is checkpointed and recomputed in the backward, as the
 reference's `jax.checkpoint` of its scan body.
 
-Not yet ported: MoE, xLSTM, audio/VLM frontends and the int8 KV cache; those
-raise NotImplementedError (jamba is served with `moe=None`).
+With `cfg.kv_cache_dtype == "int8"` an attention layer's cache is {k, v}
+int8 and {k_scale, v_scale} f32 (one scale per token and kv head,
+`models.kvquant`): prefill attends with the full-precision k and v and
+quantizes only what it writes into the ring; decode quantizes the token's k
+and v into the ring, dequantizes the whole cache into a scratch of the
+compute dtype, puts the token's exact k and v in its slot there, and runs
+`flash_decode` on the scratch, as the reference does.
+
+Not yet ported: MoE, xLSTM and the audio/VLM frontends; those raise
+NotImplementedError (jamba is served with `moe=None`).
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import kvquant
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models.module import stacked, tree_map
@@ -54,8 +63,6 @@ def check_ported(cfg) -> None:
         missing.append("xlstm")
     if cfg.audio_frontend or cfg.n_patches:
         missing.append("audio/vlm frontend")
-    if cfg.kv_cache_dtype != "native":
-        missing.append(f"kv_cache_dtype={cfg.kv_cache_dtype!r}")
     if missing:
         raise NotImplementedError(f"{cfg.name}: not yet ported to repro_torch: "
                                   + ", ".join(missing))
@@ -124,10 +131,16 @@ def cache_len_for(cfg, total_len: int) -> int:
 
 def layer_cache_init(cfg, i: int, batch: int, s_c: int, device) -> dict:
     """Zeroed cache of layer i: attention {k, v} (batch, S_c, K, dh) in the
-    compute dtype; Mamba {conv (batch, dc-1, ed) in the compute dtype, ssm
-    (batch, ed, n) f32}."""
+    compute dtype, or int8 with {k_scale, v_scale} (batch, S_c, K) f32 when
+    cfg.kv_cache_dtype is "int8"; Mamba {conv (batch, dc-1, ed) in the
+    compute dtype, ssm (batch, ed, n) f32}."""
     if mixer_kind(cfg, i) == "attn":
         shape = (batch, s_c, cfg.n_kv_heads, cfg.d_head)
+        if cfg.kv_cache_dtype == "int8":
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                    "v_scale": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
         return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
                 "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
     conv, ssm = M.mamba_state_init(cfg, batch, cfg.dtype, device)
@@ -157,17 +170,31 @@ def _attn_cache_len(cfg, caches) -> int:
 
 def _attn_layer(lp, h, cfg, rope, cache, slots, impl):
     """The attention mixer at prefill (slots None) or decode. `cache` ({k, v}
-    of this layer, (B, S_c, K, dh)) is written in place: at decode (`slots`
-    = (rows, ring slot, cache_len) of the step) slot t mod S_c of each row;
-    at prefill the last min(S, S_c) positions at slots arange(S-s_eff, S)
-    mod S_c, with the rest zeroed."""
+    of this layer, (B, S_c, K, dh), and {k_scale, v_scale} for an int8
+    cache) is written in place: at decode (`slots` = (rows, ring slot,
+    cache_len) of the step) slot t mod S_c of each row; at prefill the last
+    min(S, S_c) positions at slots arange(S-s_eff, S) mod S_c, with the rest
+    zeroed."""
+    int8 = cache is not None and "k_scale" in cache
     if slots is not None:
         B, S, _ = h.shape
         rows, slot, clen = slots
         q, k, v = L.qkv(lp["mixer"], h, cfg, rope)
-        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
-        out = L.decode_attention(q, cache["k"], cache["v"], clen)
+        if int8:
+            full = {}
+            for name, new in (("k", k[:, 0]), ("v", v[:, 0])):
+                cache[name][rows, slot], cache[f"{name}_scale"][rows, slot] = \
+                    kvquant.quantize_kv(new)
+                full[name] = kvquant.dequantize_kv(cache[name], cache[f"{name}_scale"], cfg.dtype)
+                # this step attends to the token's exact k/v; the int8 copy
+                # pays its quantization error from the next step on
+                full[name][rows, slot] = new.to(cfg.dtype)
+            k_att, v_att = full["k"], full["v"]
+        else:
+            cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+            k_att, v_att = cache["k"], cache["v"]
+        out = L.decode_attention(q, k_att, v_att, clen)
         return out.reshape(B, S, -1) @ lp["mixer"]["wo"]
     att, (k, v) = L.attn_apply(lp["mixer"], h, cfg, rope=rope, impl=impl)
     if cache is not None:
@@ -176,8 +203,13 @@ def _attn_layer(lp, h, cfg, rope, cache, slots, impl):
         s_eff = min(S, s_c)  # window may truncate; cache may be larger
         ring = torch.remainder(torch.arange(S - s_eff, S, device=h.device), s_c)
         for name, new in (("k", k), ("v", v)):
+            new = new[:, -s_eff:]
             cache[name].zero_()
-            cache[name][:, ring] = new[:, -s_eff:].to(cache[name].dtype)
+            if int8:  # attention above used the full-precision k/v
+                new, scale = kvquant.quantize_kv(new)
+                cache[f"{name}_scale"].zero_()
+                cache[f"{name}_scale"][:, ring] = scale
+            cache[name][:, ring] = new.to(cache[name].dtype)
     return att
 
 

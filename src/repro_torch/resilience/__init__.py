@@ -1,5 +1,8 @@
-"""`repro_torch.resilience` — the self-healing layer of the dist chief.
+"""`repro_torch.resilience` — the self-healing layer.
 
+  * `wrap_step_sentinel` / `StepScreen` — the mesh train step's divergence
+    sentinel: a rejected step leaves the params and the whole GuidedState
+    as they were (sentinel.py);
   * `SentinelPolicy` / `GradScreen` / `DivergenceDetector` — divergence
     screening on the dist chief's push path, with rollback / lr-backoff /
     quarantine remediation (sentinel.py);
@@ -8,12 +11,15 @@
     eviction of persistent stragglers (supervisor.py).
 
 Verified checkpoints live in `repro_torch.checkpoint`, the fault injectors
-in `repro_torch.chaos`. Numpy and the standard library only.
+in `repro_torch.chaos`. Numpy and the standard library at import (the step
+screen imports torch when it runs).
 """
 from repro_torch.resilience.sentinel import (
     DivergenceDetector,
     GradScreen,
     SentinelPolicy,
+    StepScreen,
+    wrap_step_sentinel,
 )
 from repro_torch.resilience.supervisor import LeaseTable, Supervisor
 
@@ -22,5 +28,7 @@ __all__ = [
     "GradScreen",
     "LeaseTable",
     "SentinelPolicy",
+    "StepScreen",
     "Supervisor",
+    "wrap_step_sentinel",
 ]

@@ -16,9 +16,12 @@ ONE persistent cache allocation (`T.init_caches(cfg, max_batch, max_len)`):
   length. An admission's prefill starts from fresh state (attention rows
   zeroed, Mamba states from zero), never from the slot's last request.
 
-Left out in this port so far: warm start from a checkpoint, sharding over a
-mesh (the engine runs on one card) and VLM patch embeddings (a request with
-patches raises).
+`ServeEngine.from_checkpoint` warm-starts serving from a training snapshot
+(`repro_torch.checkpoint`): only the `params` subtree is read, and the model
+config comes from the snapshot's manifest unless the caller gives one.
+
+Left out in this port so far: sharding over a mesh (the engine runs on one
+card) and VLM patch embeddings (a request with patches raises).
 
 `lockstep_generate` is the fixed-batch barriered baseline, kept as the parity
 oracle for equal-length requests.
@@ -162,6 +165,34 @@ class ServeEngine:
         self._topk = np.zeros((B,), np.int32)
         self._next_id = 0
         self.reset_stats()
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, cfg=None, *, step: Optional[int] = None,
+                        device="cuda", **engine_kw) -> "ServeEngine":
+        """Warm-start serving from a training snapshot: restore the `params`
+        subtree of the full-state checkpoint and build an engine around it on
+        `device` — the guided and optimizer state stays on disk for the
+        training job that owns it.
+
+        `step=None` takes the newest manifest entry (or a v1 LATEST);
+        `cfg=None` rebuilds the ModelConfig from the manifest metadata the
+        trainer records (arch, reduced, model_overrides). The template is
+        the model's shapes on the meta device, materialized on `device` and
+        filled leaf by leaf from the archive."""
+        from repro_torch import checkpoint as C
+
+        if step is None:
+            step = C.latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoint manifest (or v1 LATEST) in {ckpt_dir}")
+        if cfg is None:
+            cfg = C.model_config_from_manifest(ckpt_dir, step)
+        device = torch.device(device)
+        template = tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype, device=device),
+                            T.model_init(None, cfg, device="meta"))
+        params = C.restore_subtree(ckpt_dir, step, "params", template)
+        return cls(params, cfg, **engine_kw)
 
     # -------------------------------------------------------------- public
 

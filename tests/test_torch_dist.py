@@ -374,6 +374,76 @@ def test_store_stays_exactly_once_under_thread_contention():
     assert np.isfinite([e for _, e in store.history]).all()
 
 
+def test_chief_keeps_accepting_after_a_peer_drops_mid_handshake():
+    """A peer that connects and closes before answering the authentication
+    challenge (a worker killed while connecting) used to end the chief's
+    accept thread with EOFError: every later worker, and close()'s wake-up
+    connection, then waited forever for a challenge. The accept loop now
+    skips the failed handshake and serves the next peer."""
+    import socket
+
+    from repro_torch.dist import protocol
+    from repro_torch.dist.chief import Chief
+
+    result = {}
+
+    def handshakes():  # in a thread: a regression fails the test instead of hanging it
+        chief = Chief(None, {"n_workers": 1})
+        try:
+            for _ in range(3):
+                socket.create_connection(chief.address, timeout=5).close()
+            conn = protocol.connect(chief.address, timeout=5.0)
+            conn.send(("hello", 0))
+            result["welcome"] = conn.recv()[:2]
+            conn.send(("bye",))
+            conn.close()
+        finally:
+            chief.close(timeout=5.0, strict=True)
+        result["accept_alive"] = chief._accept_thread.is_alive()
+
+    t = threading.Thread(target=handshakes, daemon=True)
+    t.start()
+    t.join(timeout=60.0)
+    assert not t.is_alive(), "the chief stopped accepting after a dropped handshake"
+    assert result == {"welcome": ("welcome", 0), "accept_alive": False}
+
+
+def test_listener_queues_every_worker_while_the_chief_handshakes():
+    """Ten workers connecting at once to a chief whose accept thread is slow
+    (a busy process): with multiprocessing's default backlog of 1, some of
+    them were left for good in connections the chief never accepted (the
+    dist replay fits stalled on the card); every one must get through."""
+    from multiprocessing.connection import Client
+
+    from repro_torch.dist import protocol
+
+    listener = protocol.listen()
+    accepted, connected = [], []
+
+    def accept_slowly():
+        for _ in range(10):
+            time.sleep(0.2)
+            accepted.append(listener.accept())
+
+    def connect():
+        connected.append(Client(listener.address, family="AF_INET",
+                                authkey=protocol.AUTHKEY))
+
+    threads = [threading.Thread(target=accept_slowly, daemon=True)] + [
+        threading.Thread(target=connect, daemon=True) for _ in range(10)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 30.0
+    for t in threads:
+        t.join(timeout=max(0.1, deadline - time.monotonic()))
+    try:
+        assert len(connected) == len(accepted) == 10
+    finally:
+        for c in accepted + connected:
+            c.close()
+        listener.close()
+
+
 def test_worker_imports_neither_torch_nor_jax():
     """A worker process pays for numpy and the port's protocol only."""
     code = ("import sys\n"

@@ -122,8 +122,14 @@ def test_params_from_jax_rejects_a_wrong_shape(models):
 
 def test_unported_paths_raise():
     cfg = get_config("yi-9b").reduced()
-    with pytest.raises(NotImplementedError, match="int8"):
-        T.init_caches(cfg.replace(kv_cache_dtype="int8"), 1, 8, "cpu")
+    # the int8 cache is ported: four leaves an attention layer, k/v int8, scales f32
+    caches = T.init_caches(cfg.replace(kv_cache_dtype="int8"), 1, 8, "cpu")
+    layer = caches["l0"]
+    assert {k: (v.dtype, tuple(v.shape)) for k, v in layer.items()} == {
+        "k": (torch.int8, (cfg.n_layers, 1, 8, cfg.n_kv_heads, cfg.d_head)),
+        "v": (torch.int8, (cfg.n_layers, 1, 8, cfg.n_kv_heads, cfg.d_head)),
+        "k_scale": (torch.float32, (cfg.n_layers, 1, 8, cfg.n_kv_heads)),
+        "v_scale": (torch.float32, (cfg.n_layers, 1, 8, cfg.n_kv_heads))}
     with pytest.raises(NotImplementedError, match="moe"):
         T.model_init(torch.Generator(), cfg.replace(arch_type="moe"), "cpu")
 
