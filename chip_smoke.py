@@ -127,7 +127,8 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             step (native top-2 margin above twice the gap), at least one;
             int8 through the kernels against int8 through the plain
             versions at the serve parity bar.
-21. ckpt_mesh  the mesh trainer at full width, 2 layers, DC-ASGD with
+21. ckpt_mesh  the mesh trainer at full width, 1 layer (cut from 2 to make
+            room for phases 24-29), DC-ASGD with
             momentum (w_stale and m in the snapshot), seq 128 x batch 8,
             c = 4, rho 10, chunk_steps 4, constant lr: (a) 20 steps
             unbroken; (b) 10 steps with snapshots (ckpt_every 10,
@@ -145,13 +146,14 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             written and the peak on disk (under a temporary directory,
             removed at the end).
 22. serve_ckpt  ServeEngine.from_checkpoint on (c)'s directory, the config
-            from its manifest (2 layers): the restored params equal (c)'s
+            from its manifest (1 layer): the restored params equal (c)'s
             bit for bit; 16 greedy requests give the tokens of an engine
-            built on (c)'s params; 2 flash_attention per admission and 2
+            built on (c)'s params; 1 flash_attention per admission and 1
             flash_decode per decode step; then `python -m
             repro_torch.launch.serve --arch yi-9b --ckpt-dir <dir>` in a
             subprocess must exit 0.
-23. sentinel_mesh  gSSGD with sgd at full width and depth (48 layers), seq
+23. sentinel_mesh  gSSGD with sgd at full width, 8 layers (cut from 48 to
+            make room for phases 24-29), seq
             128 x batch 8, c = 4, 10 steps: unguarded, sentinel "finite",
             "full", and "full" at lr 5000 (diverges). The clean guarded runs
             within one bf16 ulp of the unguarded one (bitwise or not,
@@ -160,7 +162,47 @@ Phases, each printing one JSON line; any failure raises and exits non-zero:
             on_step check finds the params and the GuidedState bit for bit
             what they were before it (64-bit weighted sums of every leaf's
             bits); the sgd kernel launches once per leaf per step; each
-            fit's peak memory, "finite" within 1 GB of the unguarded peak.
+            fit's peak memory, "finite" within 1 GB of the unguarded peak;
+            the unguarded fit's largest leaf against the plain update.
+
+24. kernels_dense  flash_attention and flash_decode against their plain
+            versions at granite-20b's heads (48 query heads on one kv head
+            of 128: decode's G = 48) and minicpm-2b's (36 heads of 64, G =
+            1): a 2048-token prefill and a decode step of 8 ragged rows over
+            the 2112-slot pool (a wrapped ring in f32), bf16 and f32; error
+            beside its bar, kernel / plain / SDPA times, the bound.
+25. serve_granite  granite-20b at full width and depth (52 layers, 20.3B
+            bf16 params, random weights from --seed) behind
+            ServeEngine(max_batch=8, max_len=2112), the serve phase's 16
+            requests; 52 flash_attention per admission (all wgmma) and 52
+            flash_decode per decode step; then profile_granite as phase 4's
+            profile.
+26. parity_granite  granite at full width, 4 layers: phase 5's check at
+            PARITY_BAR.
+27. serve_minicpm  minicpm-2b at full width and depth (40 layers, 2.72B
+            params, tied embeddings), the same 16 requests; 40 and 40.
+28. serve_xlstm  xlstm-350m at full width and depth (24 layers, mLSTM and
+            sLSTM alternating), 16 staggered requests of 128-512 tokens;
+            every kernel counter reads 0 (no TPU kernel is on this path);
+            profile_xlstm (one request's prefill tokens/s, a profiled decode
+            step); parity_xlstm: 4 layers in f32, the card's logits against
+            the same model on the CPU through the port, at
+            XLSTM_PARITY_BAR.
+29. train_cli  `repro_torch.launch.train.main(argv)` in this process: (a)
+            minicpm-2b at full depth, gSSGD, wsd, 20 steps of seq 128 x 8,
+            c = 4, rho 10; (b) granite at 12 layers, DC-ASGD (w_stale); (c)
+            xlstm-350m at full depth, gSSGD, seq 8, snapshots every 10
+            steps, then the same argv with --resume --steps 30: the
+            restored state equals the saved one bit for bit and the run
+            goes from 20 to 30. Each fit: finite losses, one sgd launch a
+            param leaf a step and nothing else, steps/s, tokens/s, peak
+            memory, and its largest leaf against the plain update. (d) the
+            dist replay (phishing, gSSGD, the paper's protocol, 10 workers):
+            one sgd launch an apply, its val loss equal to the dist phase's
+            run_local on the same spec; (e) the same replay as a
+            `--role chief` subprocess and 10 `--role worker --wid`
+            subprocesses: val loss equal to (d)'s bit for bit. A
+            dense_total line gives phases 24-29's seconds.
 
 The yi-9b phases (3-5) run first and free their model before the hybrid's;
 the mesh phases follow, each fit's state freed before the next, then the
@@ -172,13 +214,17 @@ each mesh fit, at that fit's largest leaf and with that fit's launches, and
 sgd and rmsprop once for the dist replay fits and sgd once for dist_live,
 at the chief's (31, 2) f64 shape; flash_attention and flash_decode again
 for serve_int8 and serve_ckpt, momentum for ckpt_mesh at its largest layer
-leaf, sgd for sentinel_mesh at the mesh gSSGD fit's), and last
+leaf, sgd for sentinel_mesh at its unguarded fit's; flash_attention and
+flash_decode for serve_granite and serve_minicpm at their shapes, sgd once
+for each train CLI fit at its largest leaf and once for its dist replay),
+and last
 {"ok": true, "device": {...}}.
 Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import shutil
@@ -234,7 +280,13 @@ TRAIN_CHECKED_SEEDS = 3   # seeds 0-2 of each fit are held against a reference
 MESH_STEPS = 20           # two window ends at rho 10: the guided correction fires
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase line also carries the seconds since start."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -262,10 +314,11 @@ def bound(flops, nbytes, dtype):
 # ------------------------------------------------------------------ phases
 
 
-def check_attention(fa_ops, attention_ref, dev, flush, *, H, K, S, window, dtype, seed):
+def check_attention(fa_ops, attention_ref, dev, flush, *, H, K, S, window, dtype, seed,
+                    dh=128):
     import torch.nn.functional as F
 
-    B, dh = 1, 128
+    B = 1
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, S, H, dh, generator=g, device=dev).to(dtype)
     k = torch.randn(B, S, K, dh, generator=g, device=dev).to(dtype)
@@ -299,10 +352,10 @@ def check_attention(fa_ops, attention_ref, dev, flush, *, H, K, S, window, dtype
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_decode(fd_ops, decode_ref, dev, flush, *, H, K, S, lens, dtype, seed):
+def check_decode(fd_ops, decode_ref, dev, flush, *, H, K, S, lens, dtype, seed, dh=128):
     import torch.nn.functional as F
 
-    B, dh = len(lens), 128
+    B = len(lens)
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(B, 1, H, dh, generator=g, device=dev).to(dtype)
     kc = torch.randn(B, S, K, dh, generator=g, device=dev).to(dtype)
@@ -351,18 +404,22 @@ def init_model(T, cfg, dev, seed):
     return params, time.perf_counter() - t0
 
 
-def serve_main_path(T, serve, counters, cfg, params, seed, *, phase, profile):
-    """16 staggered requests behind ServeEngine(max_batch=8, max_len=2112).
-    Every launch counter is zeroed just before the requests are submitted and
-    read just after the engine drains; the counts must be the path's. Then
-    `profile(engine, serve, cfg, rng)`; its line is emitted here."""
+def serve_main_path(T, serve, counters, cfg, params, seed, *, phase, profile,
+                    max_prompt=2048):
+    """16 staggered requests behind ServeEngine(max_batch=8, max_len=max_prompt
+    + 64), prompts of 128 .. max_prompt tokens. Every launch counter is zeroed
+    just before the requests are submitted and read just after the engine
+    drains; the counts must be the path's. Then `profile(engine, serve, cfg,
+    rng)` unless it is None; its line is emitted here."""
     reset, read, variants = counters
     rng = np.random.default_rng(seed)
     n_req = 16
-    lens = rng.integers(128, 2049, n_req)
-    lens[:4] = (128, 2048, 1000, 1337)        # both ends and two ragged lengths
+    lens = rng.integers(128, max_prompt + 1, n_req)
+    # both ends and two ragged lengths
+    lens[:4] = (128, max_prompt, 1000, 1337) if max_prompt == 2048 else \
+        (128, max_prompt, max_prompt // 2 + 1, max_prompt - 75)
     gens = rng.integers(32, 65, n_req)
-    max_len = 2048 + 64
+    max_len = max_prompt + 64
     engine = serve.ServeEngine(params, cfg, max_batch=8, max_len=max_len)
     engine.run([serve.Request(rng.integers(0, cfg.vocab_size, 64).tolist(), max_new_tokens=4)])
     engine.reset_stats()
@@ -414,7 +471,8 @@ def serve_main_path(T, serve, counters, cfg, params, seed, *, phase, profile):
         "launches": {k: v for k, v in launches.items() if v},
         "flash_attention_launches_by_variant": by_variant,
     }
-    emit(profile(engine, serve, cfg, rng))
+    if profile is not None:
+        emit(profile(engine, serve, cfg, rng))
     del engine
     torch.cuda.empty_cache()
     return result
@@ -1517,14 +1575,21 @@ def profile_dist(data, dmods, ExperimentSpec, first=2000, applies=200):
     t0 = time.perf_counter()
     dist_drive(dmods, store, sched, host, first + applies)
     inproc_ms = (time.perf_counter() - t0) * 1e3 / applies
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        res = dmods["run_local"](spec, X, y, k)
-    events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
-                    key=lambda e: e.time_range.start)
-    marks = [e.time_range.start for e in events if "sgd_kernel" in e.name]
-    if len(marks) != res["n_steps"]:
-        raise RuntimeError(f"profile_dist: {len(marks)} guided kernels traced over "
-                           f"{res['n_steps']} applies")
+    # a trace that lost a kernel record (seen once in 4900 on the card)
+    # cannot mark the applies: it is taken once more, and the count printed
+    incomplete = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = dmods["run_local"](spec, X, y, k)
+        events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
+                        key=lambda e: e.time_range.start)
+        marks = [e.time_range.start for e in events if "sgd_kernel" in e.name]
+        if len(marks) == res["n_steps"]:
+            break
+        incomplete.append(len(marks))
+    else:
+        raise RuntimeError(f"profile_dist: {incomplete} guided kernels traced over "
+                           f"{res['n_steps']} applies, in both traces")
     lo, hi = marks[first], marks[first + applies]
     window = [e for e in events if lo <= e.time_range.start < hi]
     busy, end = 0.0, lo
@@ -1542,7 +1607,7 @@ def profile_dist(data, dmods, ExperimentSpec, first=2000, applies=200):
             "in_process_wall_ms_per_apply": inproc_ms,
             "device_us_per_apply": device_us / applies,
             "device_activities_per_apply": len(window) / applies,
-            "device_busy_share": busy / (hi - lo),
+            "device_busy_share": busy / (hi - lo), "incomplete_traces": incomplete,
             "top_device_us_per_apply": [{"name": n, "us": t / applies} for n, t in top]}
 
 
@@ -1610,6 +1675,8 @@ INT8_POOL_BAR = 0.56      # the reference's int8 cache-bytes bar (tests/test_kvq
 INT8_REL_BAR = 0.05       # the reference's int8-vs-native logit bar (tests/test_kvquant.py)
 CKPT_STEPS = 20
 SENTINEL_STEPS = 10
+SENTINEL_LAYERS = 8       # cut from yi-9b's 48 to make room for phases 24-29 (PERF.md §4)
+CKPT_LAYERS = 1           # cut from 2 for the same reason: a 1-layer snapshot is 80% of the bytes
 
 
 def cache_bytes(caches) -> int:
@@ -1760,11 +1827,11 @@ def state_tensors(params, gstate):
 
 
 def ckpt_spec(ExperimentSpec, seed, **kw):
-    """yi-9b at full width, 2 layers (0.87B params: params, w_stale and the f32
-    momentum make a 10.4 GB archive, bf16 stored as f32), DC-ASGD with
-    momentum at mesh_fits' momentum lr, constant."""
+    """yi-9b at full width, CKPT_LAYERS layers (0.70B params at 1: params,
+    w_stale and the f32 momentum make an 8.4 GB archive, bf16 stored as
+    f32), DC-ASGD with momentum at mesh_fits' momentum lr, constant."""
     base = dict(backend="mesh", arch="yi_9b", reduced=False, mode="asgd", strategy="dc_asgd",
-                optimizer="momentum", lr=1e-3, model_overrides=(("n_layers", 2),),
+                optimizer="momentum", lr=1e-3, model_overrides=(("n_layers", CKPT_LAYERS),),
                 seq_len=128, global_batch=8, workers=4, rho=10, steps=CKPT_STEPS,
                 schedule="constant", chunk_steps=4, seed=seed)
     base.update(kw)
@@ -1937,7 +2004,7 @@ def serve_ckpt(T, serve, counters, rep_c, ckpt_dir, seed):
            "cli_rc": cli.returncode, "cli_s": time.perf_counter() - t0,
            "cli_stdout_tail": cli.stdout.strip().splitlines()[-4:]}
     if not (params_bitwise and res["tokens_equal"] and launches == want
-            and eng.cfg.n_layers == 2 and cli.returncode == 0):
+            and eng.cfg.n_layers == CKPT_LAYERS and cli.returncode == 0):
         raise RuntimeError(f"serve_ckpt failed its checks: {res}; want {want}; "
                            f"cli stderr {cli.stderr[-2000:]}")
     del eng, live
@@ -1960,7 +2027,7 @@ def bits_digest(tensors, weights):
     return torch.stack(out).cpu()
 
 
-def sentinel_mesh(mods, counters, seed, dev):
+def sentinel_mesh(mods, counters, seed, dev, gu_ref, flush):
     """Phase 23 (see the module docstring)."""
     Trainer, ExperimentSpec, _, _ = mods
     reset, read = counters
@@ -1969,7 +2036,8 @@ def sentinel_mesh(mods, counters, seed, dev):
 
     spec = ExperimentSpec(backend="mesh", arch="yi_9b", reduced=False, mode="ssgd",
                           strategy="guided_fused", lr=1e-2, workers=4, rho=10, seq_len=128,
-                          global_batch=8, steps=SENTINEL_STEPS, schedule="constant", seed=seed)
+                          global_batch=8, steps=SENTINEL_STEPS, schedule="constant", seed=seed,
+                          model_overrides=(("n_layers", SENTINEL_LAYERS),))
     runs = {"unguarded": spec, "finite": spec.replace(sentinel="finite"),
             "full": spec.replace(sentinel="full"),
             "full_divergent": spec.replace(sentinel="full", lr=5000.0)}
@@ -2022,6 +2090,8 @@ def sentinel_mesh(mods, counters, seed, dev):
             raise RuntimeError(f"sentinel_mesh {name}: launches {launches} != {want}")
         if name == "unguarded":
             host = [x.cpu() for x in leaves]
+            # after the copy: the check updates the leaf in place
+            largest_leaf = check_fit_leaf(mods, gu_ref, flush, rep, sp)
         elif name in ("finite", "full"):
             over, bitwise = ulp_gap(leaves, host)
             line.update(past_one_ulp_of_unguarded=over, bitwise_with_unguarded=bitwise)
@@ -2041,7 +2111,7 @@ def sentinel_mesh(mods, counters, seed, dev):
     res = {"phase": "sentinel_mesh", "arch": spec.model_config().name,
            "n_layers": spec.model_config().n_layers, "fit": "gSSGD",
            "optimizer": "sgd", "steps": SENTINEL_STEPS, "seq_len": 128, "global_batch": 8,
-           "workers": 4, "runs": lines,
+           "workers": 4, "runs": lines, "largest_leaf": largest_leaf,
            "finite_peak_over_unguarded_gb": peaks["finite"] - peaks["unguarded"],
            "full_peak_over_unguarded_gb": peaks["full"] - peaks["unguarded"],
            "launches": {"guided_sgd_update": sum(r["launches"]["guided_sgd_update"]
@@ -2049,6 +2119,359 @@ def sentinel_mesh(mods, counters, seed, dev):
     if res["finite_peak_over_unguarded_gb"] > 1.0 or peaks["full"] >= 80:
         raise RuntimeError(f"sentinel_mesh memory: {res}")
     return res
+
+
+# ------------------------------------------------- dense archs, xLSTM, train CLI
+
+
+# xLSTM card-against-CPU parity: both run the f32 recurrence (TF32 off), so
+# they differ by summation order only: about 1e-6 relative through 4 layers
+# of width 1024 and 2048, on logits of O(1).
+XLSTM_PARITY_BAR = 1e-3
+CLI_STEPS = 20
+
+
+def dense_kernel_checks(fa_ops, fd_ops, attention_ref, decode_ref, dev, flush, cfgs):
+    """Phase 24: flash_attention and flash_decode at each dense arch's serve
+    shapes (its heads and d_head; a 2048-token prefill, a decode step of 8
+    ragged rows over the 2112-slot pool), bf16 and f32. Returns the bf16
+    checks by serve phase (the main path's shapes)."""
+    main_attn, main_dec, checks = {}, {}, []
+    lens = {torch.bfloat16: [2100, 1500, 900, 180, 2048, 1337, 640, 1030],
+            torch.float32: [2 * 2112 + 5, 1, 2111, 700, 64, 65, 1999, 300]}  # a wrapped ring
+    for i, (phase, c) in enumerate(cfgs.items()):
+        heads = dict(H=c.n_heads, K=c.n_kv_heads, dh=c.d_head)
+        for dtype in (torch.bfloat16, torch.float32):
+            a = check_attention(fa_ops, attention_ref, dev, flush, **heads, S=2048,
+                                window=c.sliding_window, dtype=dtype, seed=200 + i)
+            d = check_decode(fd_ops, decode_ref, dev, flush, **heads, S=2112,
+                             lens=lens[dtype], dtype=dtype, seed=210 + i)
+            for x in (a, d):
+                x["arch"] = c.name
+                emit({"phase": "kernels_dense", **x})
+            checks += [a, d]
+            if dtype == torch.bfloat16:
+                main_attn[phase] = dict(a, main_path_shape=phase)
+                main_dec[phase] = dict(d, main_path_shape=phase)
+    bad = [c for c in checks if not c["max_abs_err"] <= c["bar"]]
+    if bad:
+        raise RuntimeError(f"kernels_dense: a kernel disagrees with its plain version: {bad}")
+    return main_attn, main_dec
+
+
+def profile_recurrent(engine, serve, cfg, rng, steps: int = 8):
+    """The xLSTM path's breakdown: one request's 512-token prefill (wall
+    clock; the time-step loop, warm from the serve run), then torch.profiler
+    over `steps` decode-only engine steps with all 8 slots busy (16-token
+    prompts): busy share, launches and the kernels that take the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 512
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(engine.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine_prefill(engine, toks)
+    torch.cuda.synchronize()
+    prefill_ms = {str(n): (time.perf_counter() - t0) * 1e3}
+    for _ in range(engine.max_batch):
+        engine.submit(serve.Request(rng.integers(0, cfg.vocab_size, 16).tolist(),
+                                    max_new_tokens=steps + 4))
+    engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    engine.run()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    return {"phase": "profile_xlstm", "prefill_ms": prefill_ms,
+            "prefill_tok_s": {n: int(n) / (ms / 1e3) for n, ms in prefill_ms.items()},
+            "decode_steps": steps, "active_slots": engine.max_batch,
+            "wall_ms_per_step": wall_ms / steps, "device_ms_per_step": dev_ms / steps,
+            "device_busy_share": dev_ms / wall_ms,
+            "device_launches_per_step": sum(e.count for e in kernels) / steps,
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "ms_per_step": e.self_device_time_total / 1e3 / steps}
+                            for e in top]}
+
+
+def xlstm_parity(T, cfg, dev, seed, n_prompt=96, n_steps=8):
+    """Phase 28's parity: xlstm at full width, 4 layers, f32: a prefill and
+    `n_steps` decode steps on the card against the same model on the CPU,
+    both through the port; logits compared at XLSTM_PARITY_BAR."""
+    from repro_torch.common import tree_map
+
+    cfg4 = cfg.replace(n_layers=4, param_dtype="float32", compute_dtype="float32")
+    params = T.model_init(torch.Generator(device=dev).manual_seed(seed + 2), cfg4, dev)
+    host = tree_map(lambda t: t.cpu(), params)
+    rng = np.random.default_rng(seed + 3)
+    prompt = rng.integers(0, cfg.vocab_size, (1, n_prompt))
+    steps = rng.integers(0, cfg.vocab_size, (n_steps, 1, 1))
+
+    def run(p, device):
+        logits, caches = T.prefill(p, {"tokens": torch.from_numpy(prompt).to(device)}, cfg4,
+                                   total_len=n_prompt + n_steps)
+        out = [logits.float().cpu()]
+        for i in range(n_steps):
+            t = torch.tensor([n_prompt + i], dtype=torch.int32, device=device)
+            logits, caches = T.decode_step(p, caches, torch.from_numpy(steps[i]).to(device),
+                                           t, cfg4)
+            out.append(logits.float().cpu())
+        return torch.stack(out)
+
+    t0 = time.perf_counter()
+    card = run(params, dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run(host, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    err = (card - cpu).abs().max().item()
+    res = {"phase": "parity_xlstm", "arch": cfg.name, "n_layers": 4, "dtype": "float32",
+           "prompt": n_prompt, "decode_steps": n_steps, "max_abs_logit_diff": err,
+           "bar": XLSTM_PARITY_BAR, "logit_abs_max": card.abs().max().item(),
+           "finite": bool(torch.isfinite(card).all()), "card_s": card_s, "cpu_s": cpu_s}
+    del params, host
+    if not (res["finite"] and err <= XLSTM_PARITY_BAR):
+        raise RuntimeError(f"parity_xlstm: {res}")
+    return res
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_cli(mods, counters, gu_ref, flush, seed, root, dist_gssgd):
+    """Phase 29: the train CLI, `repro_torch.launch.train.main(argv)`, called
+    in this process so the launch counters can be read; (e) in subprocesses.
+    Returns (its line, the CLI fits' largest-leaf checks, (d)'s launches)."""
+    Trainer, ExperimentSpec, gu_ops, M = mods
+    reset, read = counters
+    from repro_torch import checkpoint as C
+    from repro_torch.common import tree_leaves
+    from repro_torch.launch import train as cli
+
+    common = ["--steps", str(CLI_STEPS), "--batch", "8", "--workers", "4", "--rho", "10",
+              "--lr", "1e-2", "--seed", str(seed)]
+    reports, restored = [], {}
+    real_fit, real_restore = Trainer.fit, C.restore_latest
+
+    def spy_fit(self, *a, **kw):
+        rep = real_fit(self, *a, **kw)
+        reports.append((self.spec, rep))
+        return rep
+
+    def spy_restore(ckpt_dir, tree_like, attempts=8):
+        step, snap = real_restore(ckpt_dir, tree_like, attempts)
+        want = restored["want"]
+        got = state_tensors(snap["params"], snap["gstate"])
+        restored["bitwise"] = (len(got) == len(want)
+                               and all(torch.equal(a, b) for a, b in zip(got, want))
+                               and snap["gstate"].step == restored["step"] == step)
+        return step, snap
+
+    def fit(name, argv, steps_run):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        with mock.patch.object(Trainer, "fit", spy_fit), \
+                mock.patch.object(C, "restore_latest", spy_restore):
+            hist = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read()
+        spec, rep = reports[-1]
+        leaves = tree_leaves(rep.model)
+        want = {k: 0 for k in launches}
+        want["guided_sgd_update"] = len(leaves) * steps_run
+        losses = [h["loss"] for h in hist] + [rep.final_loss]
+        cfg = spec.model_config()
+        line = {"fit": name, "argv": argv, "arch": cfg.name, "n_layers": cfg.n_layers,
+                "mode": spec.mode, "strategy": spec.strategy, "schedule": spec.schedule,
+                "seq_len": spec.seq_len, "global_batch": spec.global_batch,
+                "n_params": sum(x.numel() for x in leaves), "param_leaves": len(leaves),
+                "start_step": rep.start_step, "steps": rep.n_steps, "wall_s": wall,
+                "first_step_s": rep.compile_time_s, "steps_per_s": rep.steps_per_s,
+                "tokens_per_s": rep.steps_per_s * spec.global_batch * spec.seq_len,
+                "logged_losses": [h["loss"] for h in hist], "final_loss": rep.final_loss,
+                "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": {k: v for k, v in launches.items() if v}}
+        if launches != want or rep.n_steps != steps_run or not np.all(np.isfinite(losses)):
+            raise RuntimeError(f"train_cli {name}: launches {launches} != {want} "
+                               f"({len(leaves)} leaves x {steps_run} steps), or losses "
+                               f"{losses}: {line}")
+        emit({"phase": "train_cli", **line})
+        return line, spec, rep
+
+    leaf_checks = {}
+    a, spec, rep = fit("a-minicpm-gSSGD-wsd", ["--arch", "minicpm-2b", "--mode", "ssgd",
+                                               "--guided", "--schedule", "wsd"] + common,
+                       CLI_STEPS)
+    leaf_checks[a["fit"]] = (check_fit_leaf(mods, gu_ref, flush, rep, spec), a)
+    del rep
+    reports.clear()
+    b, spec, rep = fit("b-granite-12L-DC-ASGD", ["--arch", "granite-20b", "--layers", "12",
+                                                 "--mode", "dc_asgd"] + common, CLI_STEPS)
+    leaf_checks[b["fit"]] = (check_fit_leaf(mods, gu_ref, flush, rep, spec), b)
+    del rep
+    reports.clear()
+    ck = os.path.join(root, "xlstm")
+    # seq 8: the autograd over the time-step loop takes ~0.1 s a token a step
+    # (1.57 s a step at seq 16 on the H100, PERF.md §5)
+    xl = ["--arch", "xlstm-350m", "--mode", "ssgd", "--guided", "--seq", "8",
+          "--ckpt-dir", ck, "--ckpt-every", "10"] + common
+    c1, spec, rep = fit("c-xlstm-gSSGD-ckpt", xl, CLI_STEPS)
+    restored.update(want=state_tensors(rep.model, rep.state), step=CLI_STEPS)
+    del rep
+    reports.clear()
+    c2, spec, rep = fit("c-xlstm-gSSGD-resumed", xl + ["--resume", "--steps", "30"], 10)
+    del restored["want"]
+    # after the resume: the check updates the leaf in place
+    leaf = check_fit_leaf(mods, gu_ref, flush, rep, spec)
+    del rep
+    reports.clear()
+    if not (restored.get("bitwise") and c2["start_step"] == CLI_STEPS and c2["steps"] == 10):
+        raise RuntimeError(f"train_cli (c): restore bitwise {restored.get('bitwise')}, "
+                           f"resumed from {c2['start_step']} for {c2['steps']} steps")
+    c2["launches"]["guided_sgd_update"] += c1["launches"]["guided_sgd_update"]
+    leaf_checks["c-xlstm-gSSGD-ckpt"] = (leaf, c2)
+    torch.cuda.empty_cache()
+
+    # (d) the dist replay through the CLI, (e) the same split over processes
+    dist = ["--backend", "dist", "--dataset", "phishing", "--mode", "ssgd", "--guided",
+            "--dist-mode", "replay", "--epochs", "50", "--lr", "0.2", "--rho", "10",
+            "--batch-size", "16"]
+    reset()
+    t0 = time.perf_counter()
+    res = cli.main(dist + ["--metrics-out", os.path.join(root, "d.json")])
+    d_wall = time.perf_counter() - t0
+    d_launches = read()
+    want = {k: 0 for k in d_launches}
+    want["guided_sgd_update"] = res["n_steps"]
+    if res["n_steps"] != 4900 or d_launches != want:
+        raise RuntimeError(f"train_cli (d): {res['n_steps']} applies, launches {d_launches}")
+    # the dist phase's gSSGD fit ran run_local on this very spec
+    if dataclasses.asdict(cli.dist_spec_from_args(cli.build_parser().parse_args(dist))) != \
+            dataclasses.asdict(dist_gssgd["spec"]):
+        raise RuntimeError("train_cli (d): the CLI's spec differs from the dist phase's")
+    if res["val_loss"] != dist_gssgd["val_loss"]:
+        raise RuntimeError(f"train_cli (d): val loss {res['val_loss']} != run_local's "
+                           f"{dist_gssgd['val_loss']} on the same spec")
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train"]
+    out_e = os.path.join(root, "e.json")
+    t0 = time.perf_counter()
+    chief = subprocess.Popen(cmd + dist + ["--role", "chief", "--port", str(port),
+                                           "--metrics-out", out_e],
+                             cwd=HERE, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    workers = [subprocess.Popen(cmd + ["--role", "worker", "--addr", f"127.0.0.1:{port}",
+                                       "--wid", str(w)], cwd=HERE, env=env,
+                                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+               for w in range(10)]
+    try:
+        _, err = chief.communicate(timeout=300)
+        rcs = []
+        for w in workers:
+            _, w_err = w.communicate(timeout=60)
+            rcs.append(w.returncode)
+            err += w_err[-500:]
+    finally:
+        for p in [chief] + workers:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    e_wall = time.perf_counter() - t0
+    if chief.returncode != 0 or any(rcs):
+        raise RuntimeError(f"train_cli (e): chief exit {chief.returncode}, workers {rcs}: "
+                           f"{err[-2000:]}")
+    with open(out_e) as f:
+        e = json.load(f)
+    if (e["n_steps"], e["val_loss"], e["test_accuracy"]) != \
+            (res["n_steps"], res["val_loss"], res.get("test_accuracy")):
+        raise RuntimeError(f"train_cli (e): split replay {e} differs from (d)'s "
+                           f"{res['n_steps']}, {res['val_loss']}")
+    line = {"phase": "train_cli_dist",
+            "d": {"applies": res["n_steps"], "wall_s": d_wall,
+                  "applies_per_s": res["n_steps"] / d_wall, "val_loss": res["val_loss"],
+                  "val_loss_equals_run_local": True,
+                  "launches": d_launches["guided_sgd_update"]},
+            "e": {"processes": 11, "wall_s": e_wall, "val_loss": e["val_loss"],
+                  "equals_d_bitwise": True},
+            "c_restore_bitwise": True}
+    return line, leaf_checks, d_launches["guided_sgd_update"]
+
+
+def dense_slice(mods, counters, refs, kmods, flush, dev, seed, dist_gssgd):
+    """Phases 24-29. `dist_gssgd` is the dist phase's gSSGD line with its
+    spec. Returns
+    (the granite and minicpm serve lines, their flash_attention and
+    flash_decode checks by phase, the CLI fits' largest-leaf checks, the
+    CLI replay's sgd launches)."""
+    T, L, M, serve, get_config = mods["T"], mods["L"], mods["M"], mods["serve"], \
+        mods["get_config"]
+    fa_ops, fd_ops = kmods
+    attention_ref, decode_ref, _ = refs
+    from repro_torch.common import tree_leaves
+
+    t_all = time.perf_counter()
+    cfgs = {"serve_granite": get_config("granite_20b"), "serve_minicpm": get_config("minicpm_2b")}
+    main_attn, main_dec = dense_kernel_checks(fa_ops, fd_ops, attention_ref, decode_ref, dev,
+                                              flush, cfgs)
+    runs = {}
+    for phase, c in cfgs.items():
+        params, init_s = init_model(T, c, dev, seed)
+        profile = None
+        if phase == "serve_granite":
+            def profile(*a):
+                return dict(profile_decode(*a), phase="profile_granite")
+        run = serve_main_path(T, serve, counters, c, params, seed, phase=phase, profile=profile)
+        run.update(init_s=init_s, param_gb=sum(x.numel() * x.element_size()
+                                               for x in tree_leaves(params)) / 1e9)
+        del params
+        torch.cuda.empty_cache()
+        emit(run)
+        runs[phase] = run
+        if phase == "serve_granite":
+            c4 = c.replace(n_layers=4)
+            p4 = T.model_init(torch.Generator(device=dev).manual_seed(seed + 1), c4, dev)
+            emit(parity(T, L, M, refs, c4, p4, dev, seed, phase="parity_granite",
+                        bar=PARITY_BAR))
+            del p4
+            torch.cuda.empty_cache()
+    xcfg = get_config("xlstm_350m")
+    params, init_s = init_model(T, xcfg, dev, seed)
+    run = serve_main_path(T, serve, counters, xcfg, params, seed, phase="serve_xlstm",
+                          profile=profile_recurrent, max_prompt=512)
+    run.update(init_s=init_s, param_gb=sum(x.numel() * x.element_size()
+                                           for x in tree_leaves(params)) / 1e9)
+    if any(run["launches"].values()):
+        raise RuntimeError(f"serve_xlstm: no kernel is on this path, yet {run['launches']}")
+    del params
+    torch.cuda.empty_cache()
+    emit(run)
+    emit(xlstm_parity(T, xcfg, dev, seed))
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli_line, leaf_checks, d_launches = train_cli(mods["mesh"], counters[:2], mods["gu_ref"],
+                                                      flush, seed, root, dist_gssgd)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(cli_line)
+    torch.cuda.empty_cache()
+    emit({"phase": "dense_total", "seconds": time.perf_counter() - t_all})
+    return runs, main_attn, main_dec, leaf_checks, d_launches
 
 
 def main(argv=None) -> int:
@@ -2091,10 +2514,19 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": os.path.relpath(path, HERE),
           "sources": [os.path.relpath(s, HERE) for s in kernels.sources()]})
 
+    from repro_torch.engine import mesh as mesh_mod
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
+    counters = (lambda: reset_launches(fa_ops, fd_ops, ss_ops, gu_ops),
+                lambda: read_launches(fa_ops, fd_ops, ss_ops, gu_ops),
+                lambda: dict(fa_ops.launches_by_variant))
+    refs = (attention_ref, decode_ref, selective_scan_ref)
+    mesh_mods = (Trainer, ExperimentSpec, gu_ops, mesh_mod)
+    dense_mods = {"T": T, "L": L, "M": M, "serve": serve, "get_config": get_config,
+                  "mesh": mesh_mods, "gu_ref": gu_ref}
     cfg = get_config("yi-9b")
     # the hybrid path: jamba at full width, one period (8 layers), no experts
     hcfg = get_config("jamba_1_5_large_398b").replace(n_layers=8, moe=None)
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB > L2
     checks = []
     yi_heads = dict(H=cfg.n_heads, K=cfg.n_kv_heads)
     for dtype in (torch.bfloat16, torch.float32):
@@ -2166,10 +2598,6 @@ def main(argv=None) -> int:
         if not c["max_abs_err"] <= c["bar"]:
             raise RuntimeError(f"selective_scan disagrees with its plain version: {c}")
 
-    counters = (lambda: reset_launches(fa_ops, fd_ops, ss_ops, gu_ops),
-                lambda: read_launches(fa_ops, fd_ops, ss_ops, gu_ops),
-                lambda: dict(fa_ops.launches_by_variant))
-    refs = (attention_ref, decode_ref, selective_scan_ref)
     params, init_s = init_model(T, cfg, dev, args.seed)
     served = serve_main_path(T, serve, counters, cfg, params, args.seed, phase="serve",
                              profile=profile_decode)
@@ -2200,9 +2628,6 @@ def main(argv=None) -> int:
 
     # the mesh trainer: five fits, each with its largest leaf held against
     # the plain update, then the kernel-vs-plain run and the profile
-    from repro_torch.engine import mesh as mesh_mod
-
-    mesh_mods = (Trainer, ExperimentSpec, gu_ops, mesh_mod)
     t0 = time.perf_counter()
     mesh_runs = mesh_main_path(mesh_mods, counters[:2], gu_ref, flush, args.seed)
     emit(mesh_parity(mesh_mods, dev, args.seed))
@@ -2226,7 +2651,7 @@ def main(argv=None) -> int:
              "get_compensator": strategies.get_compensator, "train_ps": train_ps,
              "aug": _aug, "grad": grad}
     t0 = time.perf_counter()
-    _, dist_launches = dist_main_path(data, dmods, counters[:2], ExperimentSpec)
+    dist_lines, dist_launches = dist_main_path(data, dmods, counters[:2], ExperimentSpec)
     emit(dict(profile_dist(data, dmods, ExperimentSpec), worker_start_s=worker_start_s(),
               card=card))
     live = dist_live(data, dmods, counters[:2], ExperimentSpec, Trainer)
@@ -2268,9 +2693,18 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    sentinel_run = sentinel_mesh(mesh_mods, counters[:2], args.seed, dev)
+    sentinel_run = sentinel_mesh(mesh_mods, counters[:2], args.seed, dev, gu_ref, flush)
     emit(sentinel_run)
     emit({"phase": "resilience_total", "seconds": time.perf_counter() - t0})
+
+    # granite-20b and minicpm-2b served at full width and depth, xlstm-350m
+    # served (no kernel on its path), and the train CLI's fits
+    dense_runs, dense_attn, dense_dec, cli_leaves, cli_dist_launches = dense_slice(
+        dense_mods, counters, refs, (fa_ops, fd_ops), flush, dev, args.seed,
+        dict(next(line for line in dist_lines if line["fit"] == "gSSGD"),
+             spec=dist_fits(ExperimentSpec)["gSSGD"]))
+    main_attn.update(dense_attn)
+    main_dec.update(dense_dec)
 
     # one entry per kernel and serve path: that path's launches beside the
     # numbers measured at the shape that path gives the kernel
@@ -2285,7 +2719,7 @@ def main(argv=None) -> int:
             ("flash_decode", "src/repro/kernels/flash_decode/kernel.py:22", main_dec),
             ("selective_scan", "src/repro/kernels/selective_scan/kernel.py:21",
              {"serve_hybrid": main_scan})):
-        for run in (served, hybrid, served_int8, serve_ckpt_run):
+        for run in (served, hybrid, served_int8, serve_ckpt_run, *dense_runs.values()):
             if run["phase"] not in by_path:
                 continue
             c = by_path[run["phase"]]
@@ -2310,12 +2744,15 @@ def main(argv=None) -> int:
         if name in live["launches"]:
             runs.append(("dist_live", live["fit"], main_dist[name], live["launches"][name]))
         if name in ckpt_run["launches"]:
-            runs.append(("ckpt_mesh", "DC-ASGD-momentum-2L", ckpt_leaf,
+            runs.append(("ckpt_mesh", f"DC-ASGD-momentum-{CKPT_LAYERS}L", ckpt_leaf,
                          ckpt_run["launches"][name]))
         if name in sentinel_run["launches"]:
-            gsgd = next(r for r in mesh_runs if r["fit"] == "gSSGD")
-            runs.append(("sentinel_mesh", "gSSGD-48L", gsgd["largest_leaf"],
-                         sentinel_run["launches"][name]))
+            runs.append(("sentinel_mesh", f"gSSGD-{SENTINEL_LAYERS}L",
+                         sentinel_run["largest_leaf"], sentinel_run["launches"][name]))
+        if name == "guided_sgd_update":
+            runs += [("train_cli", fit, leaf, line["launches"][name])
+                     for fit, (leaf, line) in cli_leaves.items()]
+            runs.append(("train_cli", "d-dist-replay", main_dist[name], cli_dist_launches))
         for path, fit, c, launches in runs:
             entries.append({"name": name, "variant": "simt", "route": "cuda",
                             "source": GUIDED_SRC, "replaces": replaces, "path": path,

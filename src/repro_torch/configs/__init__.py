@@ -21,8 +21,9 @@ ARCH_IDS = [
     "paper_logreg",
 ]
 
-#: the archs this port serves so far (jamba without its MoE layers)
-PORTED = ("yi_9b", "jamba_1_5_large_398b")
+#: the archs this port serves so far (jamba without its MoE layers); paper_logreg
+#: has a module too, for the paper pipeline, which does not go through get_config
+PORTED = ("yi_9b", "jamba_1_5_large_398b", "granite_20b", "minicpm_2b", "xlstm_350m")
 
 
 def get_config(arch: str) -> ModelConfig:

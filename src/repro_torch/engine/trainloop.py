@@ -77,14 +77,20 @@ _METRIC_KEYS = (("loss", "loss"), ("worker_var", "worker_loss_var"),
                 ("corr_w", "corr_weight_sum"))
 
 
-def step_records(m, first: int) -> List[dict]:
+def step_records(m, first: int, indices=None) -> List[dict]:
     """Per-step history records from ONE dispatch's metrics: scalars
     (`chunk_steps=1`) or stacked `(k,)` tensors; `first` is the dispatch's
-    first step. The dispatch's one device-to-host read happens here."""
+    first step. `indices` picks the in-chunk offsets to materialize (None:
+    all), so a caller on a logging cadence reads only its log steps and an
+    empty selection reads nothing. The dispatch's one device-to-host read
+    happens here."""
+    indices = list(range(m["loss"].numel()) if indices is None else indices)
+    if not indices:
+        return []
     vals = torch.stack([m[key].reshape(-1) for _, key in _METRIC_KEYS]).cpu().tolist()
     arrs = dict(zip((name for name, _ in _METRIC_KEYS), vals))
     return [{"step": first + i, **{name: a[i] for name, a in arrs.items()}}
-            for i in range(len(vals[0]))]
+            for i in indices]
 
 
 def build_chunk_step(step_fn: Callable) -> Callable:

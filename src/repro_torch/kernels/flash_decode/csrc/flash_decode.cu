@@ -13,9 +13,13 @@
 // valid K and V rows: 20-40 MB at the serve paths' shapes, 6-12 us of HBM
 // time. Short of that, latency (a second launch, dependent loads, barriers)
 // and instruction issue decide the time. Design:
-// * one CTA per (split, kv head, batch row) serves all G = H/K <= 8 query
-//   heads of its kv head from one pass over its K and V rows, so each cache
-//   byte leaves device memory once;
+// * one CTA per (split, head chunk, kv head, batch row) serves a chunk of up
+//   to CHUNK = 8 of the G = H/K query heads of its kv head from one pass over
+//   its K and V rows. At G <= 8 there is one chunk and each cache byte leaves
+//   device memory once; at larger G (multi-query attention: G = 48 at
+//   granite-20b) the G/8 chunks of a kv head run side by side and re-read
+//   the same K/V tiles, mostly from L2 (a layer's whole cache at granite's
+//   serve shape is 8.65 MB of the 50 MB);
 // * the grid is sized on the host from S and the SM count alone; each CTA
 //   reads valid = min(cache_len[b], S) on the device and takes its even share
 //   of the valid slots, so long and short rows both spread over every split
@@ -27,7 +31,7 @@
 //   CTA-wide barrier runs per tile. q and cache_len are loaded first. Shared
 //   rows are padded by 16 bytes so 8 consecutive rows hit distinct banks;
 // * bf16 (the serve paths): the products run on the tensor cores
-//   (mma.sync m16n8k16, f32 accumulate) with the G heads as the rows of A =
+//   (mma.sync m16n8k16, f32 accumulate) with the chunk's heads as the rows of A =
 //   q, so scoring a tile costs a few dozen instructions a warp instead of
 //   thousands of FMAs and unpacks. Each of 4 warps takes 16 slots of every
 //   tile with its own softmax state in registers; P feeds the P V product
@@ -35,7 +39,7 @@
 //   nearly as exact as in f32; the warps merge in shared memory at the end. float32 keeps f32 products: one warp per query head,
 //   lane-per-slot scores, lane-per-column numerators;
 // * every CTA writes an un-normalized partial (num, m, l). The last CTA of
-//   each (b, kv head) to finish, found by a counter that it resets itself,
+//   each (b, kv head, chunk) to finish, found by a counter that it resets itself,
 //   merges the partials in split order (each (m, l) and numerator chunk of up
 //   to 16 splits loaded at once, not in a dependent chain), so there is no
 //   second launch and no gap, and the result is the same bits on every run.
@@ -48,6 +52,7 @@ namespace {
 
 constexpr int TILE = 64;   // cache slots per ring stage
 constexpr int STAGES = 2;  // depth of the K/V ring
+constexpr int CHUNK = 8;   // query heads one CTA serves (of the G of its kv head)
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
@@ -165,30 +170,30 @@ struct Ring {
 
 // ----------------------------------------------------------------- merge
 
-// Each CTA has written its partials (num for heads < G, m, l). The last CTA
-// of (b, kh) to get here merges them in split order and writes out; the
-// others return. Each thread merges one 4-column chunk of one head: the (m, l)
+// Each CTA has written its partials (num, m, l for heads h0 .. h0 + gc - 1).
+// The last CTA of (b, kv head, chunk) -- counter `slot` -- to get here merges
+// them in split order and writes out; the others return. Each thread merges one 4-column chunk of one head: the (m, l)
 // and the chunk of up to MERGE_BATCH partials are loaded at once, then summed
 // with weights exp2(m_s - max m), rescaled batch to batch.
 constexpr int MERGE_BATCH = 16;
 template <typename T, int DH, int NT>
 __device__ void merge_if_last(const float* __restrict__ part_num,
                               const float* __restrict__ part_ml, int* __restrict__ counters,
-                              T* __restrict__ out, int* s_last, int b, int kh, int H, int K,
-                              int n_split) {
-  const int tid = threadIdx.x, G = H / K;
+                              T* __restrict__ out, int* s_last, int b, int h0, int gc, int H,
+                              int slot, int n_split) {
+  const int tid = threadIdx.x;
   __threadfence();
   __syncthreads();
-  if (tid == 0) *s_last = atomicAdd(counters + b * K + kh, 1) == n_split - 1;
+  if (tid == 0) *s_last = atomicAdd(counters + slot, 1) == n_split - 1;
   __syncthreads();
   if (!*s_last) return;
   __threadfence();
-  if (tid == 0) counters[b * K + kh] = 0;  // ready for the next launch on this stream
+  if (tid == 0) counters[slot] = 0;  // ready for the next launch on this stream
 
   constexpr int C4 = DH / 4;  // float4 chunks of a head's numerator
-  for (int idx = tid; idx < G * C4; idx += NT) {
+  for (int idx = tid; idx < gc * C4; idx += NT) {
     const int g = idx / C4, c = idx - g * C4;
-    const size_t p0 = ((size_t)b * H + kh * G + g) * n_split;
+    const size_t p0 = ((size_t)b * H + h0 + g) * n_split;
     float mx = -INFINITY, den = 0.f;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int s0 = 0; s0 < n_split; s0 += MERGE_BATCH) {
@@ -220,12 +225,22 @@ __device__ void merge_if_last(const float* __restrict__ part_num,
       mx = bm;
     }
     den = fmaxf(den, 1e-30f);
-    T* dst = out + ((size_t)b * H + kh * G + g) * DH + 4 * c;
+    T* dst = out + ((size_t)b * H + h0 + g) * DH + 4 * c;
     dst[0] = from_f<T>(acc.x / den);
     dst[1] = from_f<T>(acc.y / den);
     dst[2] = from_f<T>(acc.z / den);
     dst[3] = from_f<T>(acc.w / den);
   }
+}
+
+// The query heads of this CTA: blockIdx.y = kv head * n_chunk + chunk.
+struct Heads {
+  int kh, h0, gc;  // kv head, first query head, heads in the chunk (1 .. CHUNK)
+};
+__device__ __forceinline__ Heads heads(int H, int K) {
+  const int G = H / K, n_chunk = (G + CHUNK - 1) / CHUNK;
+  const int kh = blockIdx.y / n_chunk, c = blockIdx.y - kh * n_chunk;
+  return {kh, kh * G + c * CHUNK, min(CHUNK, G - c * CHUNK)};
 }
 
 // This CTA's even share of the row's valid slots.
@@ -251,7 +266,7 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_u32(p)));
 }
 // d (rows 0-7 of a 16 x 8 f32 tile) += A (16 x 16 bf16) B (16 x 8 bf16). Rows
-// 8-15 of A are zero here (at most 8 heads), so rows 8-15 of D are dropped.
+// 8-15 of A are zero here (at most CHUNK = 8 heads), so rows 8-15 of D are dropped.
 __device__ __forceinline__ void mma_bf16(float (&d)[2], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   float d2, d3;
@@ -267,7 +282,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// grid (n_split, K, B), MMA_NT threads. Thread layout of a warp's fragments:
+// grid (n_split, K * n_chunk, B), MMA_NT threads. Thread layout of a warp's fragments:
 // head hr = lane / 4 (the row), slot or column pair 2 * (lane % 4) + {0, 1}.
 template <int DH>
 __global__ void __launch_bounds__(MMA_NT)
@@ -278,19 +293,20 @@ decode_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
   using R = Ring<__nv_bfloat16, DH, MMA_NT>;
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kh = blockIdx.y, b = blockIdx.z, G = H / K;
+  const Heads hd = heads(H, K);
+  const int kh = hd.kh, b = blockIdx.z, gc = hd.gc;
   const int hr = lane / 4, cp = 2 * (lane % 4);
 
-  // q and cache_len first; q is the A operand, its rows the G heads (rest 0)
+  // q and cache_len first; q is the A operand, its rows the chunk's heads (rest 0)
   const int valid = min(__ldg(cache_len + b), S);
   uint32_t qa[DH / 16][4];
   {
     const uint32_t* qrow =
-        reinterpret_cast<const uint32_t*>(q + ((size_t)b * H + kh * G + min(hr, G - 1)) * DH);
+        reinterpret_cast<const uint32_t*>(q + ((size_t)b * H + hd.h0 + min(hr, gc - 1)) * DH);
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
-      qa[kk][0] = hr < G ? __ldg(qrow + (16 * kk + cp) / 2) : 0u;
-      qa[kk][2] = hr < G ? __ldg(qrow + (16 * kk + 8 + cp) / 2) : 0u;
+      qa[kk][0] = hr < gc ? __ldg(qrow + (16 * kk + cp) / 2) : 0u;
+      qa[kk][2] = hr < gc ? __ldg(qrow + (16 * kk + 8 + cp) / 2) : 0u;
       qa[kk][1] = qa[kk][3] = 0u;
     }
   }
@@ -380,7 +396,7 @@ decode_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
   for (int j = 0; j < DH / 8; ++j)
     *reinterpret_cast<float2*>(ro + (warp * 8 + hr) * DH + 8 * j + cp) = make_float2(o[j][0], o[j][1]);
   __syncthreads();
-  for (int idx = tid; idx < G * DH; idx += MMA_NT) {
+  for (int idx = tid; idx < gc * DH; idx += MMA_NT) {
     const int g = idx / DH, d = idx - g * DH;
     float mx = -INFINITY;
 #pragma unroll
@@ -392,20 +408,20 @@ decode_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
       num = fmaf(wt, ro[(w * 8 + g) * DH + d], num);
       den = fmaf(wt, rl[w * 8 + g], den);
     }
-    const size_t p = ((size_t)b * H + kh * G + g) * n_split + blockIdx.x;
+    const size_t p = ((size_t)b * H + hd.h0 + g) * n_split + blockIdx.x;
     part_num[p * DH + d] = num;
     if (d == 0) part_ml[2 * p] = mx, part_ml[2 * p + 1] = den;
   }
-  merge_if_last<__nv_bfloat16, DH, MMA_NT>(part_num, part_ml, counters, out, s_last, b, kh, H,
-                                           K, n_split);
+  merge_if_last<__nv_bfloat16, DH, MMA_NT>(part_num, part_ml, counters, out, s_last, b, hd.h0,
+                                           gc, H, b * gridDim.y + blockIdx.y, n_split);
 }
 
 // --------------------------------------------------- float32: FMA pipes
 
-constexpr int SIMT_WARPS = 8;  // warp g serves query head g of the group
+constexpr int SIMT_WARPS = CHUNK;  // warp g serves query head g of the chunk
 constexpr int SIMT_NT = 32 * SIMT_WARPS;
 
-// grid (n_split, K, B), SIMT_NT threads.
+// grid (n_split, K * n_chunk, B), SIMT_NT threads.
 template <int DH>
 __global__ void __launch_bounds__(SIMT_NT)
 decode_simt(const float* __restrict__ q, const float* __restrict__ kc,
@@ -416,15 +432,16 @@ decode_simt(const float* __restrict__ q, const float* __restrict__ kc,
   constexpr int EPL = DH / 32, NCH = R::NCH;  // numerator columns per lane; 4-float chunks a row
   extern __shared__ __align__(16) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, g = tid >> 5;
-  const int kh = blockIdx.y, b = blockIdx.z, G = H / K;
-  const bool has_head = g < G;
+  const Heads hd = heads(H, K);
+  const int kh = hd.kh, b = blockIdx.z;
+  const bool has_head = g < hd.gc;
 
   // q and cache_len first
   const int valid = min(__ldg(cache_len + b), S);
   float qv[EPL];
   if (has_head) {
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) qv[e] = __ldg(q + ((size_t)b * H + kh * G + g) * DH + lane * EPL + e);
+    for (int e = 0; e < EPL; ++e) qv[e] = __ldg(q + ((size_t)b * H + hd.h0 + g) * DH + lane * EPL + e);
   }
 
   R ring;
@@ -492,13 +509,13 @@ decode_simt(const float* __restrict__ q, const float* __restrict__ kc,
   }
 
   if (has_head) {  // this CTA's partial of head g (zeros and m = -inf for an empty share)
-    const size_t p = ((size_t)b * H + kh * G + g) * n_split + blockIdx.x;
+    const size_t p = ((size_t)b * H + hd.h0 + g) * n_split + blockIdx.x;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) part_num[p * DH + lane * EPL + e] = o[e];
     if (lane == 0) part_ml[2 * p] = m, part_ml[2 * p + 1] = l;
   }
-  merge_if_last<float, DH, SIMT_NT>(part_num, part_ml, counters, out, s_last, b, kh, H, K,
-                                    n_split);
+  merge_if_last<float, DH, SIMT_NT>(part_num, part_ml, counters, out, s_last, b, hd.h0, hd.gc,
+                                    H, b * gridDim.y + blockIdx.y, n_split);
 }
 
 // --------------------------------------------------------------- launches
@@ -514,7 +531,7 @@ template <int DH>
 int launch(int dtype, const void* q, const void* kc, const void* vc, const int* lens, float* num,
            float* ml, int* cnt, void* out, int B, int S, int H, int K, int n_split, float sl2,
            cudaStream_t st) {
-  const dim3 grid(n_split, K, B);
+  const dim3 grid(n_split, K * ((H / K + CHUNK - 1) / CHUNK), B);
   if (dtype == 1) {
     const size_t smem = mma_smem<DH>();
     cudaError_t err = cudaFuncSetAttribute(decode_mma<DH>,
@@ -541,15 +558,15 @@ int launch(int dtype, const void* q, const void* kc, const void* vc, const int* 
 
 // Plain C entry point (bound with ctypes). dtype: 0 = float32, 1 = bfloat16.
 // part_num: B*H*n_split*dh floats, part_ml: B*H*n_split*2 floats (scratch);
-// counters: B*K ints, zero before the launch and left zero after it (the
-// buffer may not be shared by launches that can run at the same time).
-// q and the caches must be 16-byte aligned and contiguous; H/K <= 8.
+// counters: B*K*ceil(H/K / 8) ints, zero before the launch and left zero
+// after it (the buffer may not be shared by launches that can run at the same
+// time). q and the caches must be 16-byte aligned and contiguous; any H/K.
 // Returns the CUDA error code of the launch (0 on success).
 extern "C" int flash_decode_fwd(const void* q, const void* k_cache, const void* v_cache,
                                 const void* cache_len, void* part_num, void* part_ml,
                                 void* counters, void* out, int B, int S, int H, int K, int dh,
                                 int n_split, float scale, int dtype, void* stream) {
-  if (B < 1 || S < 1 || K < 1 || H % K != 0 || H / K > 8 || n_split < 1 ||
+  if (B < 1 || S < 1 || K < 1 || H < K || H % K != 0 || n_split < 1 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const int* lens = static_cast<const int*>(cache_len);

@@ -1,4 +1,4 @@
-"""Model assembly (port of `repro.models.transformer`: dense and hybrid archs).
+"""Model assembly (port of `repro.models.transformer`: dense, hybrid and xLSTM archs).
 
 API:
   model_init(gen, cfg, device)                        -> params (nested dict)
@@ -9,16 +9,19 @@ API:
 
 Layout is the reference's: a model is `n_super` super-blocks of `period`
 layers (dense: 1 layer; jamba's hybrid: 8, attention at l4 and Mamba at the
-others). Layer parameters and caches live under `blocks["l{i}"]` /
-`caches["l{i}"]`, stacked on a leading super-block dim, and the stack runs
-as a Python loop over that dim in place of `lax.scan`. An attention layer's
-cache is {k, v}, a Mamba layer's {conv, ssm}.
+others; xLSTM: 2, mLSTM then sLSTM, with no norm2 / ffn). Layer parameters
+and caches live under `blocks["l{i}"]` / `caches["l{i}"]`, stacked on a
+leading super-block dim, and the stack runs as a Python loop over that dim
+in place of `lax.scan`. An attention layer's cache is {k, v}, a Mamba
+layer's {conv, ssm}, an mLSTM layer's {conv, C, n, m} and an sLSTM layer's
+{conv, h, c, n, m}.
 
 Caches are updated IN PLACE: `prefill` writes the caches it is given (or
-fresh ones) as the reference writes fresh caches: attention rows are zeroed
-and Mamba layers start from zero states, whatever the given caches held.
-`decode_step` writes slot `t mod S_c` of every attention row and the Mamba
-states of every row; both return the same tensors. Pass views of a larger
+fresh ones) as the reference writes fresh caches: attention rows are zeroed,
+Mamba layers start from zero states and xLSTM layers from their initial
+states (m = -1e30, sLSTM's n = 1), whatever the given caches held.
+`decode_step` writes slot `t mod S_c` of every attention row and the
+recurrent states of every row; both return the same tensors. Pass views of a larger
 pool (e.g. one batch row) to prefill straight into it.
 
 The serve paths (`prefill`, `decode_step`) run under no_grad and ask for the
@@ -36,7 +39,7 @@ and v into the ring, dequantizes the whole cache into a scratch of the
 compute dtype, puts the token's exact k and v in its slot there, and runs
 `flash_decode` on the scratch, as the reference does.
 
-Not yet ported: MoE, xLSTM and the audio/VLM frontends; those raise
+Not yet ported: MoE and the audio/VLM frontends; those raise
 NotImplementedError (jamba is served with `moe=None`).
 """
 from __future__ import annotations
@@ -49,18 +52,18 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import kvquant
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
+from repro_torch.models import xlstm as X
 from repro_torch.models.module import stacked, tree_map
 
 
 def check_ported(cfg) -> None:
     """Raise for any part of `cfg` whose path this port does not have yet."""
     missing = []
-    if cfg.arch_type not in ("dense", "hybrid"):
+    if cfg.arch_type not in ("dense", "hybrid") and not (
+            cfg.arch_type == "ssm" and cfg.xlstm is not None):
         missing.append(f"arch_type={cfg.arch_type!r}")
     if cfg.moe is not None:
         missing.append("MoE ffn (moe)")
-    if cfg.xlstm is not None:
-        missing.append("xlstm")
     if cfg.audio_frontend or cfg.n_patches:
         missing.append("audio/vlm frontend")
     if missing:
@@ -72,7 +75,11 @@ def check_ported(cfg) -> None:
 
 
 def period(cfg) -> int:
-    return cfg.attn_every if cfg.arch_type == "hybrid" else 1
+    if cfg.arch_type == "hybrid":
+        return cfg.attn_every
+    if cfg.xlstm is not None:
+        return len(cfg.xlstm.pattern)
+    return 1
 
 
 def n_super(cfg) -> int:
@@ -84,24 +91,45 @@ def n_super(cfg) -> int:
 
 
 def mixer_kind(cfg, i: int) -> str:
-    """Kind of the i-th layer within a super-block: "attn" or "mamba"."""
+    """Kind of the i-th layer within a super-block: "attn", "mamba",
+    "mlstm" or "slstm"."""
+    if cfg.xlstm is not None:
+        return "mlstm" if cfg.xlstm.pattern[i % len(cfg.xlstm.pattern)] else "slstm"
     if cfg.arch_type == "hybrid":
         return "attn" if cfg.layer_is_attn(i) else "mamba"
     return "attn"
 
 
+def ffn_kind(cfg, i: int) -> Optional[str]:
+    """None for xLSTM layers (they carry their own projections), else
+    "dense" ("moe" is refused by check_ported)."""
+    if cfg.xlstm is not None:
+        return None
+    return "moe" if cfg.layer_is_moe(i) else "dense"
+
+
+def has_attention(cfg) -> bool:
+    return any(mixer_kind(cfg, i) == "attn" for i in range(period(cfg)))
+
+
+_MIXER_INIT = {"attn": L.attn_init, "mamba": M.mamba_init,
+               "mlstm": X.mlstm_init, "slstm": X.slstm_init}
+
+
 def block_init(gen, cfg, device) -> dict:
-    """One super-block: {l0..l{P-1}}, each {norm1, mixer, norm2, ffn}."""
+    """One super-block: {l0..l{P-1}}, each {norm1, mixer, norm2, ffn}, or
+    {mixer} alone for an xLSTM layer (its block norms itself)."""
     out = {}
     for i in range(period(cfg)):
-        mixer = (L.attn_init(gen, cfg, device) if mixer_kind(cfg, i) == "attn"
-                 else M.mamba_init(gen, cfg, device))
-        out[f"l{i}"] = {
-            "norm1": L.rmsnorm_init(cfg.d_model, device),
-            "mixer": mixer,
-            "norm2": L.rmsnorm_init(cfg.d_model, device),
-            "ffn": L.ffn_init(gen, cfg, device),
-        }
+        mk = mixer_kind(cfg, i)
+        lp = {}
+        if mk in ("attn", "mamba"):
+            lp["norm1"] = L.rmsnorm_init(cfg.d_model, device)
+        lp["mixer"] = _MIXER_INIT[mk](gen, cfg, device)
+        if ffn_kind(cfg, i) is not None:
+            lp["norm2"] = L.rmsnorm_init(cfg.d_model, device)
+            lp["ffn"] = L.ffn_init(gen, cfg, device)
+        out[f"l{i}"] = lp
     return out
 
 
@@ -130,11 +158,19 @@ def cache_len_for(cfg, total_len: int) -> int:
 
 
 def layer_cache_init(cfg, i: int, batch: int, s_c: int, device) -> dict:
-    """Zeroed cache of layer i: attention {k, v} (batch, S_c, K, dh) in the
-    compute dtype, or int8 with {k_scale, v_scale} (batch, S_c, K) f32 when
-    cfg.kv_cache_dtype is "int8"; Mamba {conv (batch, dc-1, ed) in the
-    compute dtype, ssm (batch, ed, n) f32}."""
-    if mixer_kind(cfg, i) == "attn":
+    """Fresh cache of layer i: attention {k, v} (batch, S_c, K, dh) zeros in
+    the compute dtype, or int8 with {k_scale, v_scale} (batch, S_c, K) f32
+    when cfg.kv_cache_dtype is "int8"; Mamba {conv (batch, dc-1, ed) in the
+    compute dtype, ssm (batch, ed, n) f32} zeros; xLSTM its initial state
+    (`xlstm.*_state_init`)."""
+    mk = mixer_kind(cfg, i)
+    if mk == "mlstm":
+        conv, (C, n, m) = X.mlstm_state_init(cfg, batch, cfg.dtype, device)
+        return {"conv": conv, "C": C, "n": n, "m": m}
+    if mk == "slstm":
+        conv, (h, c, n, m) = X.slstm_state_init(cfg, batch, cfg.dtype, device)
+        return {"conv": conv, "h": h, "c": c, "n": n, "m": m}
+    if mk == "attn":
         shape = (batch, s_c, cfg.n_kv_heads, cfg.d_head)
         if cfg.kv_cache_dtype == "int8":
             return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -148,7 +184,7 @@ def layer_cache_init(cfg, i: int, batch: int, s_c: int, device) -> dict:
 
 
 def init_caches(cfg, batch: int, total_len: int, device) -> dict:
-    """Zeroed caches {l0..l{P-1}}, each leaf stacked on a leading n_super dim."""
+    """Fresh caches {l0..l{P-1}}, each leaf stacked on a leading n_super dim."""
     check_ported(cfg)
     s_c = cache_len_for(cfg, total_len)
     ns = n_super(cfg)
@@ -228,16 +264,42 @@ def _mamba_layer(lp, h, cfg, cache, decode: bool):
     return y
 
 
+_XLSTM = {"mlstm": (X.mlstm_apply, ("C", "n", "m")),
+          "slstm": (X.slstm_apply, ("h", "c", "n", "m"))}
+
+
+def _xlstm_layer(lp, x, cfg, kind, cache, decode: bool):
+    """An mLSTM or sLSTM block (it norms its input and adds its residual).
+    Prefill starts from the initial state (the reference prefills into fresh
+    caches), so a reused pool row never continues its last request; decode
+    continues the row's state. `cache` is overwritten with the new state."""
+    apply, names = _XLSTM[kind]
+    state = None
+    if decode:
+        state = (cache["conv"], tuple(cache[k] for k in names))
+    x, (conv, inner) = apply(lp["mixer"], x, cfg, state)
+    if cache is not None:
+        cache["conv"].copy_(conv)
+        for k, new in zip(names, inner):
+            cache[k].copy_(new)
+    return x
+
+
 def layer_apply(lp, x, cfg, i, rope, cache, slots, impl):
     """Layer i of a super-block. `rope` is this pass's (cos, sin) tables;
-    `slots` is None at prefill and in training, the decode step's (rows,
-    ring slot, cache_len) at decode; `impl` the full-sequence attention's.
-    Returns x."""
+    `slots` is None at prefill and in training, at decode the step's (rows,
+    ring slot, cache_len), or () for a model with no attention layer; `impl`
+    the full-sequence attention's. Returns x."""
+    mk = mixer_kind(cfg, i)
+    if mk in _XLSTM:
+        return _xlstm_layer(lp, x, cfg, mk, cache, decode=slots is not None)
     h = L.rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    if mixer_kind(cfg, i) == "attn":
+    if mk == "attn":
         x = x + _attn_layer(lp, h, cfg, rope, cache, slots, impl)
     else:
         x = x + _mamba_layer(lp, h, cfg, cache, decode=slots is not None)
+    if ffn_kind(cfg, i) is None:
+        return x
     h = L.rmsnorm(x, lp["norm2"], cfg.norm_eps)
     return x + L.ffn_apply(lp["ffn"], h)
 
@@ -255,10 +317,14 @@ def _stack_apply(params, x, cfg, positions, *, impl, caches=None, t=None, remat=
     every layer shares (RoPE tables, the decode step's ring slots) is built
     once, and the stacked leaves are split into per-block views once
     (`unbind`, whose backward stacks each leaf's gradient once). `remat`
-    checkpoints each super-block (training only)."""
-    rope = L.rope_tables(positions, cfg.d_head, cfg.rope_theta)
+    checkpoints each super-block (training only). A model with no attention
+    layer builds no RoPE tables and no ring slots."""
+    attn = has_attention(cfg)
+    rope = L.rope_tables(positions, cfg.d_head, cfg.rope_theta) if attn else None
     slots = None
-    if t is not None:
+    if t is not None and not attn:
+        slots = ()
+    elif t is not None:
         s_c = _attn_cache_len(cfg, caches)
         rows = torch.arange(x.shape[0], device=x.device)
         slots = (rows, torch.remainder(t, s_c).long(), (t + 1).to(torch.int32))

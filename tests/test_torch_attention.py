@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
 from repro.kernels.flash_decode.ops import flash_decode as jax_flash_decode
+from repro.kernels.flash_decode.kernel import flash_decode_raw
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_decode import ops as fd_ops
@@ -84,6 +85,23 @@ def test_flash_decode_matches_jax(B, S, H, K, dh, bk):
     got = fd_ops.flash_decode(q, k, v, torch.from_numpy(lens))
     assert got.shape == (B, 1, H, dh)
     np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
+
+
+@pytest.mark.parametrize("H,K,dh", [(48, 1, 128), (36, 36, 64)])
+def test_decode_ref_any_group_size_matches_flash_decode_raw(H, K, dh):
+    """The plain version at granite-20b's G = 48 (one kv head of 128) and
+    minicpm-2b's G = 1 against the reference's Pallas kernel in interpret
+    mode: S a multiple of its 256-slot block, ragged lengths (one past S, so
+    a wrapped ring), f32."""
+    B, S = 3, 512
+    arrays = _inputs(6, (B, 1, H, dh), (B, S, K, dh), (B, S, K, dh))
+    lens = np.array([1, 300, 900], np.int32)
+    (jq, jk, jv), (q, k, v) = _both(arrays, torch.float32)
+    num, den = flash_decode_raw(jq, jk, jv, jnp.asarray(lens), interpret=True)
+    want = np.asarray(num / jnp.maximum(den, 1e-30)[..., None])[:, None]
+    got = decode_ref(q, k, v, torch.from_numpy(lens))
+    assert got.shape == (B, 1, H, dh)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
 def test_flash_decode_wrapped_ring_matches_jax():

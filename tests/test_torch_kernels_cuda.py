@@ -162,7 +162,7 @@ def test_flash_decode_edge_rows_on_card(cuda, dtype, lens):
     _decode_close(out, q, kc, vc, cl, BF16_ATOL if dtype == torch.bfloat16 else F32_ATOL)
 
 
-@pytest.mark.parametrize("H,K", [(32, 4), (64, 8)])
+@pytest.mark.parametrize("H,K", [(32, 4), (64, 8), (48, 1)])
 def test_flash_decode_is_deterministic_and_resets_its_counters(cuda, H, K):
     """Two calls give the same bits (the merge runs in split order, whichever
     CTA finishes last); back-to-back calls on one stream, with no sync between,
@@ -187,6 +187,25 @@ def test_flash_decode_bf16_group_sizes_on_card(cuda, dh, H, K):
     _decode_close(fd_ops.flash_decode(q, kc, vc, cl), q, kc, vc, cl, BF16_ATOL)
 
 
+# Group sizes past one chunk of 8 heads: granite-20b's multi-query attention
+# (48 query heads on one kv head of 128), minicpm-2b's 36 heads of 64 with no
+# grouping, and chunk counts that leave a partial last chunk (12, 20).
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("H,K,dh", [(48, 1, 128), (36, 36, 64), (16, 1, 64), (12, 1, 128),
+                                    (40, 2, 64), (32, 1, 32)])
+@pytest.mark.parametrize("lens", [
+    [2100, 1500, 0, 180, 2048, 1337, 640, 4 * 2112 + 9],  # ragged, an empty row, a wrapped ring
+    [1, 63, 64, 65, 2112, 2, 700, 1999],
+])
+def test_flash_decode_any_group_size_on_card(cuda, dtype, H, K, dh, lens):
+    q, kc, vc, cl = _decode_inputs(cuda, len(lens), 2112, H, K, dh, dtype, lens, seed=H + dh)
+    n0 = fd_ops.launches
+    out = fd_ops.flash_decode(q, kc, vc, cl)
+    torch.cuda.synchronize()
+    assert fd_ops.launches == n0 + 1 and out.shape == q.shape and out.dtype == dtype
+    _decode_close(out, q, kc, vc, cl, BF16_ATOL if dtype == torch.bfloat16 else F32_ATOL)
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 64, 4, 48, device=cuda)
     with pytest.raises(ValueError, match="d_head"):
@@ -197,10 +216,14 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     qb = torch.zeros(1, 64, 4, 32, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="d_head"):
         fa_ops.run_variant(qb, qb[:, :, :2], qb[:, :, :2], variant="wgmma")
-    qd = torch.zeros(1, 1, 16, 64, device=cuda)
-    kc = torch.zeros(1, 32, 1, 64, device=cuda)
-    with pytest.raises(ValueError, match="query heads per kv head"):
+    qd = torch.zeros(1, 1, 16, 48, device=cuda)
+    kc = torch.zeros(1, 32, 1, 48, device=cuda)
+    with pytest.raises(ValueError, match="d_head"):
         fd_ops.flash_decode(qd, kc, kc, torch.ones(1, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="does not fit"):
+        k2 = torch.zeros(1, 32, 2, 64, device=cuda)   # 15 query heads on 2 kv heads
+        fd_ops.flash_decode(torch.zeros(1, 1, 15, 64, device=cuda), k2, k2,
+                            torch.ones(1, dtype=torch.int32, device=cuda))
     with pytest.raises(TypeError):
         fd_ops.flash_decode(qd[:, :, :8], kc, kc, torch.ones(1, dtype=torch.int64, device=cuda))
 

@@ -187,7 +187,7 @@ def test_cli_runs_on_cpu(capsys):
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("minicpm-2b")
+        get_config("hubert-xlarge")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     assert T.cache_len_for(get_config("yi-9b"), 100_000) == 8192

@@ -161,7 +161,7 @@ def test_keep_history_false_keeps_the_last_record():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(arch="minicpm_2b"), "not yet ported"),
+    (dict(arch="llava_next_mistral_7b"), "not yet ported"),
     (dict(model_overrides=(("arch_type", "moe"),)), "arch_type=.moe."),
     (dict(mesh="host"), "ROADMAP slice 7"),
 ])
